@@ -1,12 +1,28 @@
-"""Attention entry points of the model.
+"""Entry points of the model's kernels.
 
-``attention`` (q:[B,T,H,D], k/v:[B,S,H,D], heads already aligned) and
-``decode_attention`` (q:[B,H,D], k/v:[B,S,H,D], lengths:[B]) run the Hopper
-kernels on CUDA tensors and their plain PyTorch versions on CPU tensors.
-There is no switch and no fallback: a CUDA tensor the kernel cannot take
-raises.
+``attention`` (q:[B,T,H,D], k/v:[B,S,H,D], heads already aligned),
+``decode_attention`` (q:[B,H,D], k/v:[B,S,H,D], lengths:[B]) and ``ssd``
+(Mamba2 SSD) run the Hopper kernels on CUDA tensors and plain PyTorch on CPU
+tensors. There is no switch and no fallback: a CUDA tensor the kernel cannot
+take raises.
 """
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention as attention
+from .ref import ssd_dual, ssd_ref
+from .ssd_scan import ssd_chunked
 
-__all__ = ["attention", "decode_attention"]
+__all__ = ["attention", "decode_attention", "ssd"]
+
+
+def ssd(x, B, C, dt, A, D, init_state=None):
+    """Mamba2 SSD. x: [Bz,T,H,hd]; B/C: [Bz,T,N]; dt: [Bz,T,H]; A/D: [H].
+    Returns (y [Bz,T,H,hd], final_state [Bz,H,hd,N]), float32.
+
+    On the CPU this is the JAX package's dispatch without Pallas: the
+    chunked dual form above 16 steps, the sequential recurrence otherwise.
+    """
+    if x.device.type == "cpu":
+        if x.shape[1] > 16:
+            return ssd_dual(x, B, C, dt, A, D, init_state=init_state)
+        return ssd_ref(x, B, C, dt, A, D, init_state=init_state)
+    return ssd_chunked(x, B, C, dt, A, D, init_state=init_state)

@@ -7,6 +7,8 @@ per-request TTFT / SLO attainment per scheduling policy.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --full --requests 16 --rps 200 --policy mfs [--policy fs ...]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --full --policy mfs
     # on a machine without a card: --device cpu (plain PyTorch path)
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..device import resolve_device
 from ..models.lm import build_model
 from ..serving import DisaggConfig, DisaggServer, ServeRequest
 
-__all__ = ["make_requests", "run"]
+__all__ = ["make_requests", "agent_requests", "run"]
 
 
 def make_requests(cfg, n: int, rps: float, seed: int = 0,
@@ -48,6 +50,29 @@ def make_requests(cfg, n: int, rps: float, seed: int = 0,
         out.append(ServeRequest(rid=i, arrival=float(arrivals[i]),
                                 tokens=toks, max_new=max_new))
     return out
+
+
+def agent_requests(cfg, n: int, seed: int = 0, prompt: int = 96,
+                   extend: int = 12, fresh: int = 44, max_new: int = 4):
+    """The agent-style stream of ``examples/serve_disagg.py``: a warm wave
+    of three whole ``prompt``-token prompts at 0, 0.05 and 0.10 s, then
+    ``n`` requests from 0.15 s at 1 ms gaps, 60% of them a warm prompt
+    extended by ``extend`` fresh tokens and the rest ``fresh``-token prompts.
+    The extensions resume a whole warm prompt: what an SSM's snapshot cache
+    (exact-prefix reuse only) can serve."""
+    rng = np.random.default_rng(seed)
+    warm = [rng.integers(0, cfg.vocab, size=(prompt,)) for _ in range(3)]
+    reqs = [ServeRequest(rid=i, arrival=i * 0.05, tokens=p, max_new=max_new)
+            for i, p in enumerate(warm)]
+    for i in range(n):
+        if rng.uniform() < 0.6:
+            toks = np.concatenate([warm[rng.integers(3)],
+                                   rng.integers(0, cfg.vocab, size=(extend,))])
+        else:
+            toks = rng.integers(0, cfg.vocab, size=(fresh,))
+        reqs.append(ServeRequest(rid=3 + i, arrival=0.15 + i * 1e-3,
+                                 tokens=toks, max_new=max_new))
+    return reqs
 
 
 def run(arch: str, *, smoke: bool = True, device=None, n_requests: int = 16,

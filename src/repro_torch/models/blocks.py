@@ -1,4 +1,5 @@
-"""Dense decoder blocks: GQA attention and the SwiGLU FFN.
+"""Decoder blocks: GQA attention, the SwiGLU FFN and the Mamba2 (SSD)
+mixer.
 
 ``attn_apply`` has the JAX package's serving modes:
   * ``prefill`` — full-sequence causal; with ``cache`` a *suffix* prefill
@@ -8,7 +9,8 @@
     K/V are written in place at each sequence's position and attention
     runs with ``lengths = pos + 1``.
 int8 KV and sliding-window / ring-buffer masks wait for the slices whose
-models need them.
+models need them. ``ssd_apply`` has the same three modes over a per-sequence
+``{"conv", "state"}`` cache (see its docstring).
 """
 from __future__ import annotations
 
@@ -16,15 +18,16 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from .layers import Dense, SwiGLU, apply_rope, rope
+from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
 from .sharding import HEAD_PAD, pad_to_multiple
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "ffn_init",
-           "ffn_apply"]
+           "ffn_apply", "SSD", "ssd_init", "ssd_apply"]
 
 
 @dataclass(frozen=True)
@@ -159,3 +162,95 @@ def ffn_init(cfg: ArchConfig, d_ff: Optional[int] = None, *,
 
 def ffn_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return p(x)
+
+
+# ------------------------------------------------------------ Mamba2 (SSD)
+class SSD(nn.Module):
+    """Mamba2 mixer parameters, named as the JAX ``ssd_init`` pytree. The
+    fused input projection ``w_in`` gives ``[z, x, B, C, dt]``; ``A_log``,
+    ``D``, ``dt_bias`` and the norm gain stay float32 in any model dtype."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d = cfg.d_model
+        d_in = cfg.ssm_expand * d
+        H = d_in // cfg.ssm_head_dim
+        N = cfg.ssm_state
+        self.w_in = Dense(d, 2 * d_in + 2 * N + H, dtype=dtype, device=device)
+        self.conv = nn.Parameter(
+            torch.zeros(cfg.ssm_conv, d_in + 2 * N, dtype=dtype,
+                        device=device), requires_grad=False)
+        for name, fill in (("A_log", 0.0), ("D", 1.0), ("dt_bias", 0.0)):
+            self.register_parameter(name, nn.Parameter(
+                torch.full((H,), fill, dtype=torch.float32, device=device),
+                requires_grad=False))
+        self.norm = RMSNorm(d_in, device=device)
+        self.w_out = Dense(d_in, d, dtype=dtype, device=device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The JAX init: N(0, 1/d_in) projections, N(0, 0.2^2) conv taps,
+        A_log = 0, D = 1, dt_bias = 0, unit norm."""
+        self.w_in.init(generator)
+        normal_(self.conv, generator, 0.2)
+        self.A_log.zero_()
+        self.D.fill_(1.0)
+        self.dt_bias.zero_()
+        self.norm.init(generator)
+        self.w_out.init(generator)
+
+
+def ssd_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> SSD:
+    return SSD(cfg, dtype=dtype, device=device)
+
+
+def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
+              cache: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, T, D]. Returns (y, new_cache) with cache ``{"conv":
+    [B, W-1, d_in+2N] (model dtype), "state": [B, H, hd, N] float32}``.
+
+    The causal depthwise conv of width W runs over ``[x, B, C]`` in float32
+    with a window of W-1 earlier steps: zeros for a full prefill, the cached
+    window for a suffix prefill (``cache`` from a prefill of the prefix) and
+    for decode (T=1). Decode writes the new window and state into the given
+    cache in place; a prefill never writes into ``cache`` (it may be a
+    snapshot the prefix index still holds).
+    """
+    B, T, d = x.shape
+    d_in = cfg.ssm_expand * d
+    hd, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = d_in // hd
+    W = cfg.ssm_conv
+    zxbcdt = p.w_in(x)
+    z = zxbcdt[..., :d_in]
+    conv_in = zxbcdt[..., d_in:2 * d_in + 2 * N]          # [x, B, C]
+    dt = zxbcdt[..., 2 * d_in + 2 * N:]
+    if cache is not None:
+        prev = cache["conv"]
+    else:
+        prev = torch.zeros((B, W - 1, conv_in.shape[-1]), dtype=conv_in.dtype,
+                           device=x.device)
+    window = torch.cat([prev, conv_in], 1)                # [B, W-1+T, C]
+    new_conv = window[:, T:]                              # last W-1 steps
+    taps = p.conv.float()                                 # [W, C]
+    win = window.float()
+    acc = win[:, 0:T] * taps[0]
+    for w in range(1, W):
+        acc = acc + win[:, w:w + T] * taps[w]
+    conv_out = F.silu(acc)
+    xh = conv_out[..., :d_in].reshape(B, T, H, hd)
+    Bc = conv_out[..., d_in:d_in + N]
+    Cc = conv_out[..., d_in + N:]
+    A = -torch.exp(p.A_log)
+    dt_s = F.softplus(dt.float() + p.dt_bias)
+    y, state = kops.ssd(xh, Bc, Cc, dt_s, A, p.D,
+                        init_state=None if cache is None else cache["state"])
+    y = y.reshape(B, T, d_in).to(x.dtype)
+    y = rmsnorm(p.norm.g, y * F.silu(z))
+    out = p.w_out(y)
+    if mode == "decode":
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(state)
+        return out, cache
+    return out, {"conv": new_conv, "state": state}

@@ -1,5 +1,6 @@
-"""Model assembly for the dense decoder family: embedding, ``count``
-decoder layers per segment, final norm and tied unembedding.
+"""Model assembly for the dense decoder and the attention-free SSM (Mamba2)
+families: embedding, ``count`` decoder layers per segment, final norm and
+tied unembedding.
 
 Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
   init(generator)                      -> fills the parameters in place
@@ -8,10 +9,13 @@ Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
   init_cache(batch_size, max_len)      -> zero caches
 
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
-then ``{"mix": {"k", "v"}}`` of ``[count, B, S, n_kv, hd]``. ``decode_step``
-writes the new tokens into the caches it is given, in place, and returns
-them; ``prefill`` builds new ones. ``pos`` of ``decode_step`` is an int or a
-[B] tensor of per-sequence positions.
+then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
+``[count, B, S, n_kv, hd]`` for attention, ``{"conv": [count, B, W-1,
+d_in+2N], "state": [count, B, H, hd, N] float32}`` for the SSM.
+``decode_step`` writes the new token into the caches it is given, in place,
+and returns them; ``prefill`` builds new ones and never writes into the
+caches it resumes from. ``pos`` of ``decode_step`` is an int or a [B]
+tensor of per-sequence positions.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .blocks import AttnDims, attn_apply, attn_init, ffn_apply, ffn_init
+from .blocks import (AttnDims, attn_apply, attn_init, ffn_apply, ffn_init,
+                     ssd_apply, ssd_init)
 from .layers import RMSNorm, normal_
 from .sharding import HEAD_PAD, pad_to_multiple
 
@@ -41,51 +46,66 @@ class Segment:
 
 
 def plan_segments(cfg: ArchConfig) -> List[Segment]:
-    """One segment of ``n_layers`` attention layers: the plan of a dense
-    model. Other families come with their slices."""
+    """One segment of ``n_layers`` layers, attention for a dense model and
+    SSD for an SSM. Other families come with their slices."""
     _check_supported(cfg)
-    return [Segment(cfg.n_layers, (("attn", False, cfg.window),))]
+    kind = "ssm" if cfg.family == "ssm" else "attn"
+    return [Segment(cfg.n_layers, ((kind, False, cfg.window),))]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     unsupported = {
-        "family": cfg.family != "dense", "block_pattern": bool(cfg.block_pattern),
+        "family": cfg.family not in ("dense", "ssm"),
+        "block_pattern": bool(cfg.block_pattern),
         "n_experts": bool(cfg.n_experts), "use_mla": cfg.use_mla,
         "enc_layers": bool(cfg.enc_layers), "window": bool(cfg.window),
         "mtp": bool(cfg.mtp), "tie_embeddings": not cfg.tie_embeddings}
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense full-attention decoders so "
-            f"far; unsupported fields: {bad}")
+            f"{cfg.name}: the port serves dense full-attention decoders and "
+            f"SSMs so far; unsupported fields: {bad}")
 
 
 class Layer(nn.Module):
-    """rmsnorm -> attention -> residual -> rmsnorm -> SwiGLU -> residual."""
+    """Attention: rmsnorm -> attention -> residual -> rmsnorm -> SwiGLU ->
+    residual. SSM (Mamba2): rmsnorm -> SSD mixer -> residual, no FFN."""
 
-    def __init__(self, cfg: ArchConfig, *, dtype, device):
+    def __init__(self, cfg: ArchConfig, kind: str, *, dtype, device):
         super().__init__()
+        self.kind = kind
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.mix = attn_init(cfg, dtype=dtype, device=device)
-        self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.ffn = ffn_init(cfg, dtype=dtype, device=device)
+        if kind == "ssm":
+            self.mix = ssd_init(cfg, dtype=dtype, device=device)
+            self.ln2 = self.ffn = None
+        else:
+            self.mix = attn_init(cfg, dtype=dtype, device=device)
+            self.ln2 = RMSNorm(cfg.d_model, device=device)
+            self.ffn = ffn_init(cfg, dtype=dtype, device=device)
 
     def init(self, generator: torch.Generator) -> None:
         for m in (self.ln1, self.mix, self.ln2, self.ffn):
-            m.init(generator)
+            if m is not None:
+                m.init(generator)
 
     def forward(self, x, *, cfg: ArchConfig, mode: str, cache=None, pos=0):
-        h, mix_cache = attn_apply(self.mix, self.ln1(x, cfg.norm_eps),
-                                  cfg=cfg, mode=mode, cache=cache, pos=pos)
+        h = self.ln1(x, cfg.norm_eps)
+        if self.kind == "ssm":
+            h, mix_cache = ssd_apply(self.mix, h, cfg=cfg, mode=mode,
+                                     cache=cache)
+            return x + h, mix_cache
+        h, mix_cache = attn_apply(self.mix, h, cfg=cfg, mode=mode,
+                                  cache=cache, pos=pos)
         x = x + h
         x = x + ffn_apply(self.ffn, self.ln2(x, cfg.norm_eps))
         return x, mix_cache
 
 
 class Model(nn.Module):
-    """Dense causal LM. Parameters are ``embed`` [Vp, d], ``ln_f`` and one
-    ``seg{i}`` ModuleList per segment holding ``count`` blocks of sublayers
-    (the JAX pytree's ``vmap``-stacked ``count`` axis, unstacked)."""
+    """Causal LM, dense or SSM. Parameters are ``embed`` [Vp, d], ``ln_f``
+    and one ``seg{i}`` ModuleList per segment holding ``count`` blocks of
+    sublayers (the JAX pytree's ``vmap``-stacked ``count`` axis,
+    unstacked)."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
                  device=None):
@@ -99,8 +119,8 @@ class Model(nn.Module):
         self.ln_f = RMSNorm(cfg.d_model, device=device)
         for si, seg in enumerate(self.segments):
             self.add_module(f"seg{si}", nn.ModuleList(
-                nn.ModuleList(Layer(cfg, dtype=dtype, device=device)
-                              for _ in seg.kinds)
+                nn.ModuleList(Layer(cfg, kind, dtype=dtype, device=device)
+                              for kind, _, _ in seg.kinds)
                 for _ in range(seg.count)))
 
     @property
@@ -185,14 +205,30 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------- cache specs
     def init_cache(self, batch_size: int, max_len: int):
-        """Zero caches storing the REAL kv-head count, in the model's dtype
-        (which the decode kernel requires; int8 KV comes with its slice)."""
-        dims = AttnDims.of(self.cfg)
-        shape = (batch_size, max_len, self.cfg.n_kv, dims.hd)
-        return [[{"mix": {n: torch.zeros((seg.count,) + shape,
-                                         dtype=self.dtype, device=self.device)
-                          for n in ("k", "v")}}
-                 for _ in seg.kinds] for seg in self.segments]
+        """Zero caches. Attention stores the REAL kv-head count, in the
+        model's dtype (which the decode kernel requires; int8 KV comes with
+        its slice); the SSM stores its conv window in the model's dtype and
+        its state in float32."""
+        cfg = self.cfg
+
+        def zeros(count, shape, dtype=self.dtype):
+            return torch.zeros((count, batch_size) + shape, dtype=dtype,
+                               device=self.device)
+
+        def one(kind, count):
+            if kind == "ssm":
+                d_in = cfg.ssm_expand * cfg.d_model
+                H, N = d_in // cfg.ssm_head_dim, cfg.ssm_state
+                return {"mix": {
+                    "conv": zeros(count, (cfg.ssm_conv - 1, d_in + 2 * N)),
+                    "state": zeros(count, (H, cfg.ssm_head_dim, N),
+                                   torch.float32)}}
+            dims = AttnDims.of(cfg)
+            shape = (max_len, cfg.n_kv, dims.hd)
+            return {"mix": {n: zeros(count, shape) for n in ("k", "v")}}
+
+        return [[one(kind, seg.count) for kind, _, _ in seg.kinds]
+                for seg in self.segments]
 
 
 def build_model(cfg: ArchConfig, *, device=None, dtype=torch.bfloat16,

@@ -12,6 +12,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_chunked_plain
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,3 +68,47 @@ def test_decode_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+def _ssd_inputs(dev, Bz, T, H=64, hd=64, N=128, with_init=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+    x = rand(Bz, T, H, hd)
+    B, C = rand(Bz, T, N, scale=0.5), rand(Bz, T, N, scale=0.5)
+    dt = torch.rand(Bz, T, H, generator=g, device=dev) * 0.099 + 0.001
+    A = -(torch.rand(H, generator=g, device=dev) * 1.5 + 0.5)
+    D = rand(H)
+    s0 = rand(Bz, H, hd, N) if with_init else None
+    return x, B, C, dt, A, D, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz,T,with_init", [
+    (1, 256, False), (1, 256, True), (1, 100, True), (1, 32, True),
+    (8, 1, True)])
+def test_ssd_kernel_matches_plain_on_card(Bz, T, with_init):
+    """The serve shapes of mamba2-1.3b (H=64, hd=64, N=128): prefill, a
+    ragged T, a suffix over a state, a decode step of 8 sequences."""
+    dev = _card()
+    args = _ssd_inputs(dev, Bz, T, with_init=with_init, seed=T)
+    got = ssd_chunked(*args)
+    want = ssd_chunked_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_state_chains_on_card():
+    dev = _card()
+    x, B, C, dt, A, D, _ = _ssd_inputs(dev, 1, 256, with_init=False, seed=1)
+    y, s = ssd_chunked(x, B, C, dt, A, D)
+    h = 128
+    y1, s1 = ssd_chunked(x[:, :h], B[:, :h], C[:, :h], dt[:, :h], A, D)
+    y2, s2 = ssd_chunked(x[:, h:], B[:, h:], C[:, h:], dt[:, h:], A, D, s1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(s2, s, atol=1e-4, rtol=1e-4)
