@@ -8,19 +8,25 @@ Phases, in order; any failure exits non-zero before a result is printed:
   2. kernels — each Hopper kernel against its plain PyTorch version on the
      card, with its time, the plain version's, one PyTorch library call's
      where one computes the same function (``scaled_dot_product_attention``
-     for attention, timed here as a yardstick only; none for the SSD scan)
-     and the bound (the larger of the flop time at the dtype's peak and the
-     byte time at 3.35 TB/s). Times are device times: ``REPS`` calls
-     captured in one CUDA graph and replayed, so the host's launch cost is
-     left out; the eager time per call (host included) is printed beside;
+     for attention, timed here as a yardstick only; none for the SSD scan
+     and the RG-LRU recurrence) and the bound (the larger of the flop time
+     at the dtype's peak and the byte time at 3.35 TB/s). Times are device
+     times: ``REPS`` calls captured in one CUDA graph and replayed, so the
+     host's launch cost is left out; the eager time per call (host
+     included) is printed beside;
   3. serve — behind ``DisaggServer``, random weights from seed 0, bf16:
      full-width smollm-360m on 16 requests (flash and decode attention),
-     then full-width mamba2-1.3b on an agent-style stream whose follow-ups
-     resume snapshots (the SSD scan); each path's launch counters are
-     zeroed just before its run and read just after;
+     full-width mamba2-1.3b on an agent-style stream whose follow-ups
+     resume snapshots (the SSD scan), then full-width recurrentgemma-9b
+     on an agent stream of ~2.1k-token prompts past its 2048 window (the
+     RG-LRU scan and both attention kernels at head dim 256 with the
+     window); each path's launch counters are zeroed just before its run
+     and read just after;
   4. whole model — each model in float32 through the kernels on the card
-     and through the plain versions on the CPU: prefill of a 256-token
-     prompt and 4 decode steps, logits compared.
+     and through the plain versions on the CPU: prefill of a prompt (256
+     tokens; 2112 for recurrentgemma-9b, cut to depth 5) and 4 decode steps
+     on the caches admitted as ``DecodeBatch.add`` admits them, logits
+     compared.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,13 +110,16 @@ def bound_ms(flops, nbytes, dtype):
 
 # ------------------------------------------------------------------ phase 2
 def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
-               B=1, H=16):
+               B=1, H=16, kv_heads=None):
+    """``kv_heads`` (default ``H``) KV heads expanded to the ``H`` query
+    heads as the model does for one KV head: a stride-0 view."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    Hk = kv_heads or H
     g = torch.Generator(device="cuda").manual_seed(T * 7 + S + D)
     q = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
+            .expand(-1, -1, H, -1) for _ in range(2))
     kw = dict(causal=causal, q_offset=q_offset, window=window)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
@@ -126,7 +135,7 @@ def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
         mask &= (qp - kp) < window
     pairs = int(mask.sum())               # (query, key) pairs this data needs
     flops = 4.0 * B * H * D * pairs
-    nbytes = (2 * B * T * H * D + 2 * B * S * H * D) * q.element_size()
+    nbytes = (2 * B * T * H * D + 2 * B * S * Hk * D) * q.element_size()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if causal and not window and q_offset == 0 and T == S:
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -140,44 +149,46 @@ def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
                   flops, nbytes, dtype, err)
 
 
-def decode_case(dtype, B=8, H=16, D=64, S=1024):
+def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    Hk = kv_heads or H
     g = torch.Generator(device="cuda").manual_seed(S + D)
     q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
+            .expand(-1, -1, H, -1) for _ in range(2))
     lengths = torch.tensor([1, S, 0, 17, 128, 129, S // 2, S - 24],
                            dtype=torch.int32, device="cuda")[:B]
     got = decode_attention(q, k, v, lengths)
     want = decode_attention_plain(q, k, v, lengths)
     torch.cuda.synchronize()
-    err = check(f"decode_attention[B={B},S={S},{str(dtype)[6:]}]", got, want,
-                TOL[dtype])
+    name = f"decode_attention[B={B},S={S},D={D},{str(dtype)[6:]}]"
+    err = check(name, got, want, TOL[dtype])
     keys = int(lengths.sum())
     flops = 4.0 * H * D * keys
-    nbytes = (2 * keys * H * D + 2 * B * H * D) * q.element_size() + 4 * B
+    nbytes = (2 * keys * Hk * D + 2 * B * H * D) * q.element_size() + 4 * B
     mask = (torch.arange(S, device="cuda")[None] < lengths[:, None])
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[:, None, None])
-    return _timed(f"decode_attention[B={B},S={S},{str(dtype)[6:]}]",
-                  lambda: decode_attention(q, k, v, lengths),
+    return _timed(name, lambda: decode_attention(q, k, v, lengths),
                   lambda: decode_attention_plain(q, k, v, lengths), lib,
                   flops, nbytes, dtype, err)
 
 
-def _timed(name, kernel, plain, lib, flops, nbytes, dtype, err):
-    """Device times (graph replay) of the kernel, its plain version and the
-    library call (None where there is none), with the eager time per kernel
-    call beside."""
-    ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+def _timed(name, kernel, plain, lib, flops, nbytes, dtype, err,
+           plain_reps=REPS):
+    """Device times (graph replay) of the kernel, its plain version (over
+    ``plain_reps`` calls in its graph) and the library call (None where
+    there is none), with the eager time per kernel call beside."""
+    ms, plain_ms = graph_ms(kernel), graph_ms(plain, plain_reps)
     lib_ms = graph_ms(lib) if lib is not None else None
     eager = time_ms(kernel)
     b_ms, b_by = bound_ms(flops, nbytes, dtype)
     lib_txt = f"{lib_ms:.4f} ms" if lib is not None else "none"
     log(f"    {name}: kernel {ms:.4f} ms (eager call {eager:.4f} ms) | "
-        f"plain {plain_ms:.4f} ms | library {lib_txt} | bound {b_ms:.5f} ms "
+        f"plain {plain_ms:.4f} ms ({plain_reps} calls a graph) | library "
+        f"{lib_txt} | bound {b_ms:.5f} ms "
         f"({b_by}) | {flops:.3e} flop {nbytes:.3e} B")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
@@ -236,6 +247,54 @@ def ssd_chain_case(T=256):
     check(f"ssd_chunked[chain 2x{h} = {T}] state", s2, s, SSD_TOL)
 
 
+RGLRU_TOL = 1e-4    # as tests/test_kernels.py: float32, the kernel's fused
+#                     multiply-add vs the plain version's multiply and add
+
+
+def rglru_inputs(B, T, W=4096, with_init=True, seed=0):
+    """float32 inputs at recurrentgemma-9b's width, a in [0.7, 0.999] and x,
+    the state N(0, 1), as the JAX kernel tests draw them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand(B, T, W, generator=g, device="cuda") * 0.299 + 0.7
+    x = torch.randn(B, T, W, generator=g, device="cuda")
+    s0 = torch.randn(B, W, generator=g, device="cuda") if with_init else None
+    return a, x, s0
+
+
+def rglru_case(name, B, T, W=4096, *, with_init=True):
+    from repro_torch.kernels.rglru import (rglru_cost, rglru_scan,
+                                           rglru_scan_plain)
+    args = rglru_inputs(B, T, W, with_init, seed=B * 1000 + T)
+    h, s = rglru_scan(*args)
+    hp, sp = rglru_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = max(check(f"rglru_scan[{name}] h", h, hp, RGLRU_TOL),
+              check(f"rglru_scan[{name}] state", s, sp, RGLRU_TOL))
+    flops, nbytes = rglru_cost(B, T, W, with_init)
+    # the plain version is a Python loop of T steps, ~2 kernels a step: a
+    # graph of 20 calls at T = 2112 would hold ~85k nodes, so long cases
+    # time it over 2 calls in the graph; no single PyTorch call computes a
+    # linear recurrence, so library_ms is null
+    return _timed(f"rglru_scan[{name}]", lambda: rglru_scan(*args),
+                  lambda: rglru_scan_plain(*args), None, flops, nbytes,
+                  torch.float32, err, plain_reps=REPS if T <= 64 else 2)
+
+
+def rglru_chain_case(T=2112):
+    """Two calls of T/2, the second resuming the first's state, equal one
+    call of T (what a suffix prefill over a snapshot relies on)."""
+    from repro_torch.kernels.rglru import rglru_scan
+    a, x, _ = rglru_inputs(1, T, with_init=False, seed=7)
+    h, s = rglru_scan(a, x)
+    m = T // 2
+    h1, s1 = rglru_scan(a[:, :m], x[:, :m])
+    h2, s2 = rglru_scan(a[:, m:], x[:, m:], s1)
+    torch.cuda.synchronize()
+    check(f"rglru_scan[chain 2x{m} = {T}] h", torch.cat([h1, h2], 1), h,
+          RGLRU_TOL)
+    check(f"rglru_scan[chain 2x{m} = {T}] state", s2, s, RGLRU_TOL)
+
+
 def phase_kernels():
     log("[2] kernels against their plain versions on the card")
     main = {}
@@ -253,6 +312,14 @@ def phase_kernels():
         r = decode_case(dtype)
         if dtype is torch.bfloat16:
             main["decode_attention"] = r
+        # recurrentgemma-9b's local attention: 16 query heads over one
+        # stride-0 KV head, head dim 256, window 2048
+        flash_case("D=256 window=2048 T=S=2112 MQA", dtype, 2112, 2112, 256,
+                   window=2048, kv_heads=1)
+        flash_case("D=256 window=2048 suffix T=32 S=2080 q_offset=2048 MQA",
+                   dtype, 32, 2080, 256, q_offset=2048, window=2048,
+                   kv_heads=1)
+        decode_case(dtype, D=256, S=2048, kv_heads=1)
     # mamba2-1.3b's serve shapes (H=64, hd=64, N=128), float32 as the model
     # feeds the scan (the conv output is float32)
     main["ssd_chunked"] = ssd_case("prefill Bz=1 T=256", 1, 256,
@@ -262,19 +329,28 @@ def phase_kernels():
     ssd_case("suffix T=32 init_state", 1, 32)
     ssd_case("decode Bz=8 T=1", 8, 1)
     ssd_chain_case()
+    # recurrentgemma-9b's serve shapes (W = 4096), float32 as the model
+    # feeds the scan
+    main["rglru_scan"] = rglru_case("prefill B=1 T=2112", 1, 2112,
+                                    with_init=False)
+    rglru_case("suffix B=1 T=32 init_state", 1, 32)
+    rglru_case("decode B=8 T=1 init_state", 8, 1)
+    rglru_case("ragged B=3 T=33 W=100 init_state", 3, 33, 100)
+    rglru_chain_case()
     return main
 
 
 # ------------------------------------------------------------------ phase 3
-def serve_once(model, reqs):
-    """One ``DisaggServer.serve`` over ``reqs``; returns the results, the
-    prefill / decode calls and the phase's wall seconds (each prefill and
-    decode call ends in a device synchronise)."""
+def serve_once(model, reqs, capacity):
+    """One ``DisaggServer.serve`` over ``reqs`` with ``capacity`` decode
+    tokens a slot; returns the results, the prefill / decode calls and the
+    phase's wall seconds (each prefill and decode call ends in a device
+    synchronise)."""
     from repro_torch.core import make_policy
     from repro_torch.serving import DisaggConfig, DisaggServer
 
     srv = DisaggServer(model, policy=make_policy("mfs"), cfg=DisaggConfig(
-        n_prefill_units=2, decode_slots=8, decode_capacity=1024))
+        n_prefill_units=2, decode_slots=8, decode_capacity=capacity))
     wall = {"prefill": 0.0, "decode": 0.0}
     calls = {"prefill": 0, "decode": 0}
 
@@ -300,7 +376,7 @@ def serve_once(model, reqs):
     return res, calls, t_phase
 
 
-def serve_counted(model, reqs, kernels):
+def serve_counted(model, reqs, kernels, capacity=1024):
     """Run 1 of a serve phase: the launch counters of ``kernels`` (their
     wrapper functions) are zeroed just before and read just after. Checks
     the results and returns (launches, results, decode steps)."""
@@ -308,7 +384,7 @@ def serve_counted(model, reqs, kernels):
     log("  run 1 (cold, counted):")
     for k in kernels:
         k.launches = 0
-    res, calls, _ = serve_once(model, reqs)
+    res, calls, _ = serve_once(model, reqs, capacity)
     launches = {k.__name__: k.launches for k in kernels}
     steps = max(len(r.tokens) for r in res) - 1
     log(f"  launches {launches} | prompt tokens "
@@ -322,18 +398,18 @@ def serve_counted(model, reqs, kernels):
     return launches, res, steps
 
 
-def serve_profiled(model, reqs):
+def serve_profiled(model, reqs, capacity=1024):
     """Run 2 (warm) and run 3 (warm, under ``torch.profiler``): device busy
     time, the idle share and the top kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     log("  run 2 (warm):")
-    _, _, warm = serve_once(model, reqs)
+    _, _, warm = serve_once(model, reqs, capacity)
     log("  run 3 (warm, under torch.profiler):")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, traced = serve_once(model, reqs)
+        _, _, traced = serve_once(model, reqs, capacity)
     # device-side events only (kernels, copies); the operator rows above
     # them would count the same device time twice
     rows = [e for e in prof.key_averages()
@@ -351,11 +427,15 @@ def serve_profiled(model, reqs):
             f"{e.count:6d} calls  {e.key[:90]}")
 
 
-def _model(arch, dtype):
-    from repro_torch.configs import ARCHS
+def _model(cfg, dtype):
     from repro_torch.models import build_model
-    return build_model(ARCHS[arch], device="cuda", dtype=dtype,
+    return build_model(cfg, device="cuda", dtype=dtype,
                        generator=torch.Generator("cuda").manual_seed(0))
+
+
+def _arch(name):
+    from repro_torch.configs import ARCHS
+    return ARCHS[name]
 
 
 def phase_serve_smollm():
@@ -365,7 +445,7 @@ def phase_serve_smollm():
 
     log("[3a] serve: full-width smollm-360m (bf16, seed 0) behind "
         "DisaggServer(mfs), 2 prefill units, 8 decode slots x 1024")
-    model = _model("smollm-360m", torch.bfloat16)
+    model = _model(_arch("smollm-360m"), torch.bfloat16)
     cfg = model.cfg
     reqs = make_requests(cfg, 16, 200.0, seed=0, mean_prompt=256, max_new=8)
     launches, res, steps = serve_counted(model, reqs, (flash_attention,
@@ -384,7 +464,7 @@ def phase_serve_mamba2():
     log("[3b] serve: full-width mamba2-1.3b (bf16, seed 0) behind "
         "DisaggServer(mfs), 2 prefill units, 8 decode slots; agent stream: "
         "3 warm 256-token prompts, 13 follow-ups (60% extend one by 32)")
-    model = _model("mamba2-1.3b", torch.bfloat16)
+    model = _model(_arch("mamba2-1.3b"), torch.bfloat16)
     cfg = model.cfg
     reqs = agent_requests(cfg, 13, seed=0, prompt=256, extend=32, fresh=288,
                           max_new=8)
@@ -397,31 +477,71 @@ def phase_serve_mamba2():
     return launches
 
 
+def phase_serve_hybrid():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.launch.serve import agent_requests
+
+    log("[3c] serve-recurrentgemma-9b-agent-long: full-width "
+        "recurrentgemma-9b (bf16, seed 0) behind DisaggServer(mfs), 2 "
+        "prefill units, 8 decode slots x 4096; agent stream: 3 warm "
+        "2112-token prompts, 13 follow-ups (60% extend one by 32), past the "
+        "2048 window")
+    model = _model(_arch("recurrentgemma-9b"), torch.bfloat16)
+    cfg = model.cfg
+    reqs = agent_requests(cfg, 13, seed=0, prompt=2112, extend=32,
+                          fresh=2144, max_new=8)
+    launches, res, steps = serve_counted(
+        model, reqs, (rglru_scan, flash_attention, decode_attention),
+        capacity=4096)
+    # a follow-up resumed a warm prompt's snapshot by suffix prefill
+    assert any(r.reused_tokens >= 2112 for r in res), "no snapshot resumed"
+    n_attn = cfg.n_attn_layers()
+    n_rec = cfg.n_layers - n_attn
+    assert launches["rglru_scan"] >= n_rec * (len(reqs) + steps), launches
+    assert launches["flash_attention"] >= n_attn * len(reqs), launches
+    assert launches["decode_attention"] >= n_attn * steps, launches
+    serve_profiled(model, reqs, capacity=4096)
+    return launches
+
+
 # ------------------------------------------------------------------ phase 4
-def phase_whole_model(arch):
+def _admit(model, caches, n):
+    """The B=1 prefill ``caches`` of an ``n``-token prompt as
+    ``DecodeBatch.add`` admits them into one slot of a batch with room for
+    the 4 decode steps: full-attention k/v padded, a window leaf rolled
+    into its ring, state leaves as they are."""
+    from repro_torch.serving import DecodeBatch
+    batch = DecodeBatch(model, capacity=n + 8, max_slots=1)
+    batch.add(0, caches, n, first_token=0)
+    return batch._stacked             # the stacked caches the step reads
+
+
+def phase_whole_model(arch, n_layers=None, n=256):
+    import dataclasses
+
     from repro_torch.models import build_model
 
+    cfg = _arch(arch)
+    depth = "full"
+    if n_layers is not None:
+        cfg, depth = dataclasses.replace(cfg, n_layers=n_layers), "cut"
     log(f"[4] whole model {arch}, float32: kernels on the card vs plain on "
         "the CPU")
-    gpu = _model(arch, torch.float32)
-    cfg = gpu.cfg
-    log(f"  depth {cfg.n_layers} layers (full), d_model {cfg.d_model}")
+    gpu = _model(cfg, torch.float32)
+    log(f"  depth {cfg.n_layers} layers ({depth}), d_model {cfg.d_model}, "
+        f"prompt {n} tokens")
     cpu = build_model(cfg, device="cpu", dtype=torch.float32)
     cpu.load_state_dict(gpu.state_dict())
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 260))
-    n = 256
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, n + 4))
     diffs, scale = [], 0.0
     outs = {}
     for name, m in (("cuda", gpu), ("cpu", cpu)):
         t0 = time.perf_counter()
         lg, caches = m.prefill({"tokens": toks[:, :n]})
         steps = [lg]
-        # token-indexed leaves (attention k/v) grow by the 4 decode steps;
-        # SSM leaves (conv window, state) keep their size
-        caches = [[{"mix": {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 4))
-                            if k in ("k", "v") else t
-                            for k, t in layer["mix"].items()}}
-                   for layer in seg] for seg in caches]
+        caches = _admit(m, caches, n)
         for s in range(4):
             lg, caches = m.decode_step(caches, toks[:, n + s:n + s + 1], n + s)
             steps.append(lg)
@@ -457,6 +577,8 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import gc
+
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -480,18 +602,37 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"    {name}: {line.strip()}")
 
-    main_cases = phase_kernels()
-    launches = {**phase_serve_smollm(), **phase_serve_mamba2()}
-    torch.cuda.empty_cache()
-    phase_whole_model("smollm-360m")
-    phase_whole_model("mamba2-1.3b")
+    def run_phase(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        gc.collect()                      # the phase's models go here
+        torch.cuda.empty_cache()
+        log(f"  phase {label} took {time.perf_counter() - t:.1f} s")
+        return out
+
+    main_cases = run_phase("2", phase_kernels)
+    launches = {**run_phase("3a", phase_serve_smollm),
+                **run_phase("3b", phase_serve_mamba2)}
+    # the hybrid path launches both attention kernels too: the kernels
+    # line keeps 3a's counts for them and reads rglru_scan's from 3c
+    hybrid = run_phase("3c", phase_serve_hybrid)
+    launches["rglru_scan"] = hybrid["rglru_scan"]
+    run_phase("4a", phase_whole_model, "smollm-360m")
+    run_phase("4b", phase_whole_model, "mamba2-1.3b")
+    # float32 at full depth would be 38.5 GB on each side: depth 5 is one
+    # (rec, rec, attn) unit and the (rec, rec) tail; 2112 tokens crop the
+    # 2048 window, so the decode steps run through the rolled ring
+    run_phase("4c", phase_whole_model, "recurrentgemma-9b", n_layers=5,
+              n=2112)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:110"),
                "ssd_chunked": ("src/repro_torch/csrc/ssd_scan.cu",
-                               "src/repro/kernels/ssd_scan.py:85")}
+                               "src/repro/kernels/ssd_scan.py:85"),
+               "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                              "src/repro/kernels/rglru.py:57")}
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], **main_cases[n]}
                for n, (src, rep) in sources.items()]

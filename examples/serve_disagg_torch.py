@@ -15,11 +15,14 @@ runtime's ticks with it, over minutes).
 
 The stream is agent-style: a warm wave registers three whole prompts in the
 prefix index, then a burst of follow-ups extends them. For an SSM
-(``--arch mamba2-1.3b``) that is what snapshot reuse needs: the index keeps
-the whole per-sequence state at the end of each prefill, and only an exact
-prefix resumes it.
+(``--arch mamba2-1.3b``) or a hybrid (``--arch recurrentgemma-9b``) that is
+what snapshot reuse needs: the index keeps the whole per-sequence state at
+the end of each prefill (for the hybrid, with the local-attention layers'
+last ``window`` keys), and only an exact prefix resumes it.
 
     PYTHONPATH=src python examples/serve_disagg_torch.py --arch mamba2-1.3b
+    PYTHONPATH=src python examples/serve_disagg_torch.py \
+        --arch recurrentgemma-9b --full
     PYTHONPATH=src python examples/serve_disagg_torch.py --full   # full width
     # on a machine without a card: --device cpu (plain PyTorch path)
 """

@@ -1,11 +1,12 @@
 """repro_torch.configs — the architectures the port serves so far (exact
-public configs + reduced smoke variants): the dense smollm-360m and the
-attention-free SSM mamba2-1.3b."""
+public configs + reduced smoke variants): the dense smollm-360m, the
+attention-free SSM mamba2-1.3b and the hybrid recurrentgemma-9b."""
 from .base import ArchConfig, ShapeCell, SHAPES
-from . import mamba2_1_3b, smollm_360m
+from . import mamba2_1_3b, recurrentgemma_9b, smollm_360m
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (smollm_360m, mamba2_1_3b)}
-SMOKES = {m.CONFIG.name: m.SMOKE for m in (smollm_360m, mamba2_1_3b)}
+_MODULES = (smollm_360m, mamba2_1_3b, recurrentgemma_9b)
+ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+SMOKES = {m.CONFIG.name: m.SMOKE for m in _MODULES}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -11,7 +11,7 @@
 // (2 * sum(lengths) * H * D * sizeof(elem)). This first design reads only
 // the keys below each sequence's length (nothing past it, no padding of D),
 // lets one thread score one key and lets the threads of the block own the
-// head dim for the P.V update. With B = 8 sequences it fills 8 * H blocks,
+// head dim for the P.V update (D / 128 output elements each at D = 256). With B = 8 sequences it fills 8 * H blocks,
 // short of the 132 SMs at small H: splitting the KV axis over blocks
 // (flash-decoding) is the work of the kernel's redesign.
 //
@@ -24,7 +24,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // keys scored per step; also >= max head dim
+constexpr int kThreads = 128;  // keys scored per step
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegBig = -1e30f;
 
@@ -74,8 +74,12 @@ decode_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     q_s[d] = to_f32(q[b * q_sb + h * q_sh + d]) * scale;
   __syncthreads();
 
+  // thread tid owns output elements d = tid + r * kThreads, d < D
+  constexpr int kOwn = (D + kThreads - 1) / kThreads;
   float m = kNegBig, l = 0.f;  // identical in every thread
-  float acc = 0.f;             // thread tid < D owns output element d = tid
+  float acc[kOwn];
+#pragma unroll
+  for (int r = 0; r < kOwn; ++r) acc[r] = 0.f;
   for (int c = 0; c < len; c += kThreads) {
     const int j = c + tid;
     float sc = -INFINITY;      // keys at or past the length: probability 0
@@ -94,18 +98,26 @@ decode_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     m = m_new;
     p_s[tid] = p;
     __syncthreads();
-    if (tid < D) {
-      const int n = min(kThreads, len - c);
-      float x = acc * alpha;
-      for (int jj = 0; jj < n; ++jj)
-        x = fmaf(p_s[jj], to_f32(vb[(c + jj) * vs.s + tid]), x);
-      acc = x;
+    const int n = min(kThreads, len - c);
+#pragma unroll
+    for (int r = 0; r < kOwn; ++r) {
+      const int d = tid + r * kThreads;
+      if (d < D) {
+        float x = acc[r] * alpha;
+        for (int jj = 0; jj < n; ++jj)
+          x = fmaf(p_s[jj], to_f32(vb[(c + jj) * vs.s + d]), x);
+        acc[r] = x;
+      }
     }
     __syncthreads();
   }
-  if (tid < D) {
-    const long long off = (static_cast<long long>(b) * H + h) * D + tid;
-    store(o + off, acc / fmaxf(l, 1e-30f));
+#pragma unroll
+  for (int r = 0; r < kOwn; ++r) {
+    const int d = tid + r * kThreads;
+    if (d < D) {
+      const long long off = (static_cast<long long>(b) * H + h) * D + d;
+      store(o + off, acc[r] / fmaxf(l, 1e-30f));
+    }
   }
 }
 
@@ -131,6 +143,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 64: return launch<Elem, 64>(q, k, v, lengths, o, B, S, H, q_sb, q_sh, ks, vs, scale, stream);
     case 96: return launch<Elem, 96>(q, k, v, lengths, o, B, S, H, q_sb, q_sh, ks, vs, scale, stream);
     case 128: return launch<Elem, 128>(q, k, v, lengths, o, B, S, H, q_sb, q_sh, ks, vs, scale, stream);
+    case 256: return launch<Elem, 256>(q, k, v, lengths, o, B, S, H, q_sb, q_sh, ks, vs, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,6 +16,12 @@
 // into shared memory, and skips every KV tile wholly above the diagonal or
 // outside the window. wgmma/TMA tiles are the work of a later redesign.
 //
+// Head dims 32-128 take 64-row query tiles. Head dim 256 takes 32-row tiles,
+// so that each thread still holds 64 accumulators (kBlockQ * D / kThreads)
+// and the block's shared memory (172,800 B) stays under the 232,448 B a
+// block may have; the KV tile stays 64 keys, which the softmax's two keys
+// per lane assume.
+//
 // Plain C interface (bound from Python with ctypes). The caller allocates the
 // output [B,T,H,D] contiguous; inputs may be strided except along D.
 
@@ -26,7 +32,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegBig = -1e30f;
@@ -40,8 +45,13 @@ struct Strides {  // element strides of the batch, sequence and head axes
   long long b, t, h;
 };
 
+// query rows per block: 64, or 32 at head dim 256 (see the header)
+template <int D>
+__host__ __device__ constexpr int block_q() { return D > 128 ? 32 : 64; }
+
 template <int D>
 constexpr int smem_floats() {
+  constexpr int kBlockQ = block_q<D>();
   return kBlockQ * D              // q tile, pre-scaled
          + kBlockK * (D + 1)      // k tile, padded row: no bank conflicts
          + kBlockK * D            // v tile
@@ -55,6 +65,7 @@ flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                  const Elem* __restrict__ v, Elem* __restrict__ o,
                  int T, int S, int H, Strides qs, Strides ks, Strides vs,
                  int causal, int window, int q_offset, float scale) {
+  constexpr int kBlockQ = block_q<D>();
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + kBlockQ * D;
@@ -191,7 +202,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_fwd_kernel<Elem, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + kBlockQ - 1) / kBlockQ);
+  const dim3 grid(B * H, (T + block_q<D>() - 1) / block_q<D>());
   flash_fwd_kernel<Elem, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const Elem*>(q), static_cast<const Elem*>(k),
       static_cast<const Elem*>(v), static_cast<Elem*>(o), T, S, H, qs, ks, vs,
@@ -209,6 +220,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 64: return launch<Elem, 64>(q, k, v, o, B, T, S, H, qs, ks, vs, causal, window, q_offset, scale, stream);
     case 96: return launch<Elem, 96>(q, k, v, o, B, T, S, H, qs, ks, vs, causal, window, q_offset, scale, stream);
     case 128: return launch<Elem, 128>(q, k, v, o, B, T, S, H, qs, ks, vs, causal, window, q_offset, scale, stream);
+    case 256: return launch<Elem, 256>(q, k, v, o, B, T, S, H, qs, ks, vs, causal, window, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,8 @@
 """Kernels of the port.
 
-    flash_attention.py / decode_attention.py / ssd_scan.py — hand-written
-        Hopper CUDA kernels (sources in ``csrc/``), each with its plain
-        PyTorch version, a wrapper and a launch counter
+    flash_attention.py / decode_attention.py / ssd_scan.py / rglru.py —
+        hand-written Hopper CUDA kernels (sources in ``csrc/``), each
+        with its plain PyTorch version, a wrapper and a launch counter
     ops.py    — the entry points the model calls
     ref.py    — plain PyTorch oracles (semantics of record)
     _build.py — builds ``csrc/*.cu`` with nvcc at first use

@@ -21,7 +21,7 @@ __all__ = ["load", "build_all", "SOURCES", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

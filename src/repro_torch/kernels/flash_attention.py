@@ -25,7 +25,7 @@ from .ref import flash_attention_ref
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the plain PyTorch version of the kernel: the oracle of ``ref.py``

@@ -1,17 +1,18 @@
 """Entry points of the model's kernels.
 
 ``attention`` (q:[B,T,H,D], k/v:[B,S,H,D], heads already aligned),
-``decode_attention`` (q:[B,H,D], k/v:[B,S,H,D], lengths:[B]) and ``ssd``
-(Mamba2 SSD) run the Hopper kernels on CUDA tensors and plain PyTorch on CPU
-tensors. There is no switch and no fallback: a CUDA tensor the kernel cannot
-take raises.
+``decode_attention`` (q:[B,H,D], k/v:[B,S,H,D], lengths:[B]), ``ssd``
+(Mamba2 SSD) and ``rglru`` (the RG-LRU recurrence, a/x:[B,T,W]) run the
+Hopper kernels on CUDA tensors and plain PyTorch on CPU tensors. There is
+no switch and no fallback: a CUDA tensor the kernel cannot take raises.
 """
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention as attention
 from .ref import ssd_dual, ssd_ref
+from .rglru import rglru_scan as rglru
 from .ssd_scan import ssd_chunked
 
-__all__ = ["attention", "decode_attention", "ssd"]
+__all__ = ["attention", "decode_attention", "ssd", "rglru"]
 
 
 def ssd(x, B, C, dt, A, D, init_state=None):

@@ -4,8 +4,8 @@ mirroring the JAX package's ``kernels/ref.py``).
 The attention oracles accumulate in float32, mask with -1e30 before the
 softmax and zero the probabilities of masked keys, so a row with no visible
 key gives 0. The Mamba2 SSD oracles (``ssd_ref`` sequential, ``ssd_dual``
-chunked) compute in float32 and return ``(y, final_state)``. The ``rglru``
-oracle arrives with the slice that needs it.
+chunked) compute in float32 and return ``(y, final_state)``, as does the
+RG-LRU recurrence ``rglru_ref``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["flash_attention_ref", "decode_attention_ref", "ssd_ref",
-           "ssd_dual"]
+           "ssd_dual", "rglru_ref"]
 
 _NEG = -1e30
 
@@ -155,3 +155,22 @@ def ssd_dual(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     y_intra = torch.einsum("bcqsh,bcshd->bcqhd", G[..., None] * L, xc)
     y = (y_inter + y_intra).reshape(Bz, nc * Q, H, hd)[:, :T]
     return y + xf[:, :T] * D.float()[None, None, :, None], s
+
+
+def rglru_ref(a: torch.Tensor, x: torch.Tensor,
+              init_state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gated linear recurrence  h_t = a_t * h_{t-1} + x_t  (RG-LRU core),
+    sequential over time.
+
+    a/x: [B, T, W]. Returns (h [B,T,W], final_state [B,W]), both float32.
+    """
+    B, T, W = a.shape
+    af, xf = a.float(), x.float()
+    h = (torch.zeros((B, W), dtype=torch.float32, device=a.device)
+         if init_state is None else init_state.float())
+    hs = torch.empty((B, T, W), dtype=torch.float32, device=a.device)
+    for t in range(T):
+        h = af[:, t] * h + xf[:, t]
+        hs[:, t] = h
+    return hs, h

@@ -9,6 +9,8 @@ Usage:
         --full --requests 16 --rps 200 --policy mfs [--policy fs ...]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --full --policy mfs
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --full --policy mfs
     # on a machine without a card: --device cpu (plain PyTorch path)
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Decoder blocks: GQA attention, the SwiGLU FFN and the Mamba2 (SSD)
-mixer.
+"""Decoder blocks: GQA attention (full or local), the SwiGLU FFN, the
+Mamba2 (SSD) mixer and the RG-LRU recurrent block of RecurrentGemma.
 
 ``attn_apply`` has the JAX package's serving modes:
   * ``prefill`` — full-sequence causal; with ``cache`` a *suffix* prefill
@@ -8,9 +8,12 @@ mixer.
     each sequence at its own position (``pos`` is a [B] tensor): the new
     K/V are written in place at each sequence's position and attention
     runs with ``lengths = pos + 1``.
-int8 KV and sliding-window / ring-buffer masks wait for the slices whose
-models need them. ``ssd_apply`` has the same three modes over a per-sequence
-``{"conv", "state"}`` cache (see its docstring).
+A local-attention layer (``window > 0``) masks keys ``window`` or more
+positions back, keeps only the last ``window`` positions in its prefill
+cache and decodes into a ring buffer (see ``attn_apply``). int8 KV waits
+for the slice whose model needs it. ``ssd_apply`` and ``rglru_apply`` have
+the same three modes over a per-sequence ``{"conv", "state"}`` cache (see
+``ssd_apply``'s docstring).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
 from .sharding import HEAD_PAD, pad_to_multiple
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "ffn_init",
-           "ffn_apply", "SSD", "ssd_init", "ssd_apply"]
+           "ffn_apply", "SSD", "ssd_init", "ssd_apply", "RGLRU",
+           "rglru_init", "rglru_apply"]
 
 
 @dataclass(frozen=True)
@@ -105,9 +109,18 @@ def _expand_kv(x: torch.Tensor, qmap: torch.Tensor, n_kv: int
 
 def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
                cache: Optional[Dict[str, torch.Tensor]] = None,
-               pos: Union[int, torch.Tensor] = 0
+               pos: Union[int, torch.Tensor] = 0, window: int = 0
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B, T, D]. Returns (y, new_cache)."""
+    """x: [B, T, D]. Returns (y, new_cache).
+
+    With ``window`` a query sees the keys less than ``window`` positions
+    back; a prefill keeps the last ``min(window, length)`` positions, and
+    decode treats the cache of ``S <= window`` slots as a ring in which
+    position p lives at slot ``p % S`` (``DecodeBatch.add`` rolls a cropped
+    prefill cache into that order). Every slot of the ring is valid once
+    ``pos + 1 >= S`` and the first ``pos + 1`` are before, so decode
+    attention runs with ``lengths = min(pos + 1, S)`` in both cases: the
+    order of the keys does not matter to it."""
     B, T, _ = x.shape
     dims = AttnDims.of(cfg)
     q = p.wq(x).reshape(B, T, dims.n_q, dims.hd)
@@ -128,9 +141,10 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         assert cache is not None and T == 1
         ck, cv = cache["k"], cache["v"]                        # [B,S,n_kv,hd]
         S, n_store = ck.shape[1], ck.shape[2]
-        # written in place; a position past the capacity clamps to the last
-        # slot, as JAX's dynamic_update_slice does, so dead slots stay inside
-        slot = pos.clamp(max=S - 1)
+        # written in place: a local layer at pos % S of its ring; a full
+        # one at pos, a position past the capacity clamped to the last slot,
+        # as JAX's dynamic_update_slice does, so dead slots stay inside
+        slot = pos % S if window else pos.clamp(max=S - 1)
         rows = torch.arange(B, device=x.device)
         ck[rows, slot] = k[:, 0, :n_store].to(ck.dtype)
         cv[rows, slot] = v[:, 0, :n_store].to(cv.dtype)
@@ -144,12 +158,15 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         Pk = cache["k"].shape[1]
         k_all = torch.cat([cache["k"], k], 1)
         v_all = torch.cat([cache["v"], v], 1)
-        new_cache = {"k": k_all, "v": v_all}
         out = kops.attention(q, expand(k_all), expand(v_all), causal=True,
-                             q_offset=Pk)
+                             q_offset=Pk, window=window)
+        keep = min(window, Pk + T) if window else Pk + T
+        new_cache = {"k": k_all[:, -keep:], "v": v_all[:, -keep:]}
     else:
-        new_cache = {"k": k, "v": v}
-        out = kops.attention(q, expand(k), expand(v), causal=True)
+        out = kops.attention(q, expand(k), expand(v), causal=True,
+                             window=window)
+        keep = min(window, T) if window else T
+        new_cache = {"k": k[:, T - keep:], "v": v[:, T - keep:]}
     y = p.wo(out.reshape(B, T, dims.n_q * dims.hd))
     return y, new_cache
 
@@ -204,6 +221,25 @@ def ssd_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> SSD:
     return SSD(cfg, dtype=dtype, device=device)
 
 
+def _causal_conv(x: torch.Tensor, taps: torch.Tensor,
+                 prev: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over time, in float32. x: [B, T, C]; taps:
+    [W, C]; prev: the W-1 earlier steps [B, W-1, C], or None for zeros.
+    Returns (y [B, T, C] float32, the last W-1 steps of ``[prev, x]`` in
+    x's dtype: the window the next call resumes from)."""
+    B, T, C = x.shape
+    W = taps.shape[0]
+    if prev is None:
+        prev = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    seq = torch.cat([prev, x], 1)                         # [B, W-1+T, C]
+    t, s = taps.float(), seq.float()
+    y = s[:, 0:T] * t[0]
+    for i in range(1, W):
+        y = y + s[:, i:i + T] * t[i]
+    return y, seq[:, T:]
+
+
 def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
               cache: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -221,23 +257,12 @@ def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     d_in = cfg.ssm_expand * d
     hd, N = cfg.ssm_head_dim, cfg.ssm_state
     H = d_in // hd
-    W = cfg.ssm_conv
     zxbcdt = p.w_in(x)
     z = zxbcdt[..., :d_in]
     conv_in = zxbcdt[..., d_in:2 * d_in + 2 * N]          # [x, B, C]
     dt = zxbcdt[..., 2 * d_in + 2 * N:]
-    if cache is not None:
-        prev = cache["conv"]
-    else:
-        prev = torch.zeros((B, W - 1, conv_in.shape[-1]), dtype=conv_in.dtype,
-                           device=x.device)
-    window = torch.cat([prev, conv_in], 1)                # [B, W-1+T, C]
-    new_conv = window[:, T:]                              # last W-1 steps
-    taps = p.conv.float()                                 # [W, C]
-    win = window.float()
-    acc = win[:, 0:T] * taps[0]
-    for w in range(1, W):
-        acc = acc + win[:, w:w + T] * taps[w]
+    acc, new_conv = _causal_conv(conv_in, p.conv,
+                                 None if cache is None else cache["conv"])
     conv_out = F.silu(acc)
     xh = conv_out[..., :d_in].reshape(B, T, H, hd)
     Bc = conv_out[..., d_in:d_in + N]
@@ -254,3 +279,92 @@ def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         cache["state"].copy_(state)
         return out, cache
     return out, {"conv": new_conv, "state": state}
+
+
+# -------------------------------------------------- RG-LRU (RecurrentGemma)
+_RGLRU_BLOCKS = 16      # Griffin's block-diagonal gate heads
+_RGLRU_C = 8.0          # a = sigmoid-gated power of Lambda: exp(-c r softplus)
+
+
+class RGLRU(nn.Module):
+    """Griffin recurrent block parameters, named as the JAX ``rglru_init``
+    pytree: branch and gate projections ``w_x``/``w_gate_branch``
+    ``[d, w]``, the temporal conv taps ``[ssm_conv, w]``, the block-diagonal
+    gates ``gate_in``/``gate_rec`` ``[nb, w/nb, w/nb]``, the per-channel
+    decay ``a_param`` (float32 in any model dtype) and ``w_out_rg``."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d = cfg.d_model
+        w = cfg.rglru_width or d
+        nb = _RGLRU_BLOCKS if w % _RGLRU_BLOCKS == 0 else 1
+        kb = w // nb
+        self.w_x = Dense(d, w, dtype=dtype, device=device)
+        self.w_gate_branch = Dense(d, w, dtype=dtype, device=device)
+
+        def param(shape, dt=dtype):
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
+                                requires_grad=False)
+        self.conv = param((cfg.ssm_conv, w))
+        self.gate_in = param((nb, kb, kb))
+        self.gate_rec = param((nb, kb, kb))
+        self.a_param = param((w,), torch.float32)
+        self.w_out_rg = Dense(w, d, dtype=dtype, device=device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The JAX init: N(0, 1/d_in) projections, N(0, 0.2^2) conv taps,
+        N(0, 1/kb) gates, and Lambda = linspace(0.9, 0.999, w) as
+        ``a_param = log(expm1(Lambda^(1/c)))``."""
+        self.w_x.init(generator)
+        self.w_gate_branch.init(generator)
+        normal_(self.conv, generator, 0.2)
+        kb = self.gate_in.shape[1]
+        normal_(self.gate_in, generator, kb ** -0.5)
+        normal_(self.gate_rec, generator, kb ** -0.5)
+        lam = torch.linspace(0.9, 0.999, self.a_param.numel(),
+                             dtype=torch.float32)
+        self.a_param.copy_(torch.log(torch.expm1(lam ** (1.0 / _RGLRU_C))))
+        self.w_out_rg.init(generator)
+
+
+def rglru_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> RGLRU:
+    return RGLRU(cfg, dtype=dtype, device=device)
+
+
+def rglru_apply(p: RGLRU, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, T, D]. Returns (y, new_cache) with cache ``{"conv":
+    [B, W-1, w] (model dtype), "state": [B, w] float32}``, carried and
+    written as in ``ssd_apply``.
+
+    The branch ``w_x x`` runs through the causal conv (no activation); the
+    block-diagonal gates read the conv output cast to the model dtype, the
+    gated input uses it in float32; ``a = exp(-c r softplus(a_param))`` and
+    the input scale ``beta = sqrt(1 - a^2)`` feed the recurrence, whose
+    float32 output, cast to the model dtype, is gated by ``gelu`` (tanh
+    form, as ``jax.nn.gelu``) of the gate branch.
+    """
+    B, T, _ = x.shape
+    w = p.a_param.numel()
+    gate_branch = F.gelu(p.w_gate_branch(x), approximate="tanh")
+    xt, new_conv = _causal_conv(p.w_x(x), p.conv,
+                                None if cache is None else cache["conv"])
+    nb, kb = p.gate_rec.shape[0], p.gate_rec.shape[1]
+    xtb = xt.to(x.dtype).reshape(B, T, nb, kb)
+    rt = torch.sigmoid(torch.einsum("btnk,nkj->btnj", xtb, p.gate_rec)
+                       .reshape(B, T, w).float())
+    it = torch.sigmoid(torch.einsum("btnk,nkj->btnj", xtb, p.gate_in)
+                       .reshape(B, T, w).float())
+    log_a = -_RGLRU_C * rt * F.softplus(p.a_param)
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    h, state = kops.rglru(a, beta * (xt * it),
+                          None if cache is None else cache["state"])
+    y = p.w_out_rg(h.to(x.dtype) * gate_branch)
+    if mode == "decode":
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(state)
+        return y, cache
+    return y, {"conv": new_conv, "state": state}

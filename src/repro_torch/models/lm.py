@@ -1,6 +1,7 @@
-"""Model assembly for the dense decoder and the attention-free SSM (Mamba2)
-families: embedding, ``count`` decoder layers per segment, final norm and
-tied unembedding.
+"""Model assembly for the dense decoder, the attention-free SSM (Mamba2)
+and the hybrid (RecurrentGemma: RG-LRU blocks and local attention)
+families: embedding, ``count`` blocks of sublayers per segment, final norm
+and the unembedding (tied to the embedding, or its own ``unembed``).
 
 Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
   init(generator)                      -> fills the parameters in place
@@ -10,8 +11,10 @@ Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
 
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
 then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
-``[count, B, S, n_kv, hd]`` for attention, ``{"conv": [count, B, W-1,
-d_in+2N], "state": [count, B, H, hd, N] float32}`` for the SSM.
+``[count, B, S, n_kv, hd]`` for attention (``S <= window`` for a local
+layer), ``{"conv": [count, B, W-1, d_in+2N], "state": [count, B, H, hd, N]
+float32}`` for the SSM and ``{"conv": [count, B, W-1, w], "state": [count,
+B, w] float32}`` for an RG-LRU block.
 ``decode_step`` writes the new token into the caches it is given, in place,
 and returns them; ``prefill`` builds new ones and never writes into the
 caches it resumes from. ``pos`` of ``decode_step`` is an int or a [B]
@@ -29,8 +32,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .blocks import (AttnDims, attn_apply, attn_init, ffn_apply, ffn_init,
-                     ssd_apply, ssd_init)
-from .layers import RMSNorm, normal_
+                     rglru_apply, rglru_init, ssd_apply, ssd_init)
+from .layers import Dense, RMSNorm, normal_
 from .sharding import HEAD_PAD, pad_to_multiple
 
 __all__ = ["Model", "build_model", "Segment", "plan_segments"]
@@ -46,40 +49,53 @@ class Segment:
 
 
 def plan_segments(cfg: ArchConfig) -> List[Segment]:
-    """One segment of ``n_layers`` layers, attention for a dense model and
-    SSD for an SSM. Other families come with their slices."""
+    """As the JAX ``plan_segments``: a hybrid repeats its ``block_pattern``
+    unit ``n_layers // len(pattern)`` times, then a tail segment of the
+    remaining sublayers, with the window on the attention sublayers only;
+    any other model is one segment of ``n_layers`` layers."""
     _check_supported(cfg)
-    kind = "ssm" if cfg.family == "ssm" else "attn"
-    return [Segment(cfg.n_layers, ((kind, False, cfg.window),))]
+    if cfg.block_pattern:
+        def kinds(n):
+            return tuple((cfg.layer_kind(i), False,
+                          cfg.window if cfg.layer_kind(i) == "attn" else 0)
+                         for i in range(n))
+        n_units, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
+        segs = [Segment(n_units, kinds(len(cfg.block_pattern)))] \
+            if n_units else []
+        return segs + ([Segment(1, kinds(rem))] if rem else [])
+    return [Segment(cfg.n_layers, ((cfg.layer_kind(0), False, cfg.window),))]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     unsupported = {
-        "family": cfg.family not in ("dense", "ssm"),
-        "block_pattern": bool(cfg.block_pattern),
+        "family": cfg.family not in ("dense", "ssm", "hybrid"),
         "n_experts": bool(cfg.n_experts), "use_mla": cfg.use_mla,
-        "enc_layers": bool(cfg.enc_layers), "window": bool(cfg.window),
-        "mtp": bool(cfg.mtp), "tie_embeddings": not cfg.tie_embeddings}
+        "enc_layers": bool(cfg.enc_layers), "mtp": bool(cfg.mtp)}
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense full-attention decoders and "
-            f"SSMs so far; unsupported fields: {bad}")
+            f"{cfg.name}: the port serves dense decoders, SSMs and hybrids "
+            f"so far; unsupported fields: {bad}")
+
+
+_MIXER_INIT = {"attn": attn_init, "ssm": ssd_init, "rec": rglru_init}
 
 
 class Layer(nn.Module):
-    """Attention: rmsnorm -> attention -> residual -> rmsnorm -> SwiGLU ->
-    residual. SSM (Mamba2): rmsnorm -> SSD mixer -> residual, no FFN."""
+    """Attention or RG-LRU (``rec``): rmsnorm -> mixer -> residual ->
+    rmsnorm -> SwiGLU -> residual. SSM (Mamba2): rmsnorm -> SSD mixer ->
+    residual, no FFN. ``window`` is the local-attention window of an
+    attention sublayer (0: full)."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, *, dtype, device):
+    def __init__(self, cfg: ArchConfig, kind: str, window: int = 0, *,
+                 dtype, device):
         super().__init__()
-        self.kind = kind
+        self.kind, self.window = kind, window
         self.ln1 = RMSNorm(cfg.d_model, device=device)
+        self.mix = _MIXER_INIT[kind](cfg, dtype=dtype, device=device)
         if kind == "ssm":
-            self.mix = ssd_init(cfg, dtype=dtype, device=device)
             self.ln2 = self.ffn = None
         else:
-            self.mix = attn_init(cfg, dtype=dtype, device=device)
             self.ln2 = RMSNorm(cfg.d_model, device=device)
             self.ffn = ffn_init(cfg, dtype=dtype, device=device)
 
@@ -94,18 +110,23 @@ class Layer(nn.Module):
             h, mix_cache = ssd_apply(self.mix, h, cfg=cfg, mode=mode,
                                      cache=cache)
             return x + h, mix_cache
-        h, mix_cache = attn_apply(self.mix, h, cfg=cfg, mode=mode,
-                                  cache=cache, pos=pos)
+        if self.kind == "rec":
+            h, mix_cache = rglru_apply(self.mix, h, cfg=cfg, mode=mode,
+                                       cache=cache)
+        else:
+            h, mix_cache = attn_apply(self.mix, h, cfg=cfg, mode=mode,
+                                      cache=cache, pos=pos,
+                                      window=self.window)
         x = x + h
         x = x + ffn_apply(self.ffn, self.ln2(x, cfg.norm_eps))
         return x, mix_cache
 
 
 class Model(nn.Module):
-    """Causal LM, dense or SSM. Parameters are ``embed`` [Vp, d], ``ln_f``
-    and one ``seg{i}`` ModuleList per segment holding ``count`` blocks of
-    sublayers (the JAX pytree's ``vmap``-stacked ``count`` axis,
-    unstacked)."""
+    """Causal LM: dense, SSM or hybrid. Parameters are ``embed`` [Vp, d],
+    ``ln_f``, ``unembed`` [d, Vp] when the embeddings are not tied, and one
+    ``seg{i}`` ModuleList per segment holding ``count`` blocks of sublayers
+    (the JAX pytree's ``vmap``-stacked ``count`` axis, unstacked)."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
                  device=None):
@@ -117,10 +138,13 @@ class Model(nn.Module):
             torch.zeros(self.vocab_padded, cfg.d_model, dtype=dtype,
                         device=device), requires_grad=False)
         self.ln_f = RMSNorm(cfg.d_model, device=device)
+        self.unembed = None if cfg.tie_embeddings else Dense(
+            cfg.d_model, self.vocab_padded, dtype=dtype, device=device)
         for si, seg in enumerate(self.segments):
             self.add_module(f"seg{si}", nn.ModuleList(
-                nn.ModuleList(Layer(cfg, kind, dtype=dtype, device=device)
-                              for kind, _, _ in seg.kinds)
+                nn.ModuleList(Layer(cfg, kind, window, dtype=dtype,
+                                    device=device)
+                              for kind, _, window in seg.kinds)
                 for _ in range(seg.count)))
 
     @property
@@ -140,6 +164,8 @@ class Model(nn.Module):
         unit norms, zeroed padded-head ``wo`` rows."""
         normal_(self.embed, generator, 1.0 / math.sqrt(self.cfg.d_model))
         self.ln_f.init(generator)
+        if self.unembed is not None:
+            self.unembed.init(generator)
         for si in range(len(self.segments)):
             for block in self._blocks(si):
                 for layer in block:
@@ -175,7 +201,7 @@ class Model(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ln_f(x, self.cfg.norm_eps)
-        logits = x @ self.embed.T
+        logits = x @ self.embed.T if self.unembed is None else self.unembed(x)
         if self.vocab_padded != self.cfg.vocab:
             iota = torch.arange(self.vocab_padded, device=logits.device)
             logits = torch.where(iota < self.cfg.vocab, logits,
@@ -207,15 +233,16 @@ class Model(nn.Module):
     def init_cache(self, batch_size: int, max_len: int):
         """Zero caches. Attention stores the REAL kv-head count, in the
         model's dtype (which the decode kernel requires; int8 KV comes with
-        its slice); the SSM stores its conv window in the model's dtype and
-        its state in float32."""
+        its slice), over ``min(max_len, window)`` slots for a local layer;
+        the SSM and RG-LRU blocks store their conv window in the model's
+        dtype and their state in float32."""
         cfg = self.cfg
 
         def zeros(count, shape, dtype=self.dtype):
             return torch.zeros((count, batch_size) + shape, dtype=dtype,
                                device=self.device)
 
-        def one(kind, count):
+        def one(kind, window, count):
             if kind == "ssm":
                 d_in = cfg.ssm_expand * cfg.d_model
                 H, N = d_in // cfg.ssm_head_dim, cfg.ssm_state
@@ -223,11 +250,16 @@ class Model(nn.Module):
                     "conv": zeros(count, (cfg.ssm_conv - 1, d_in + 2 * N)),
                     "state": zeros(count, (H, cfg.ssm_head_dim, N),
                                    torch.float32)}}
-            dims = AttnDims.of(cfg)
-            shape = (max_len, cfg.n_kv, dims.hd)
+            if kind == "rec":
+                w = cfg.rglru_width or cfg.d_model
+                return {"mix": {
+                    "conv": zeros(count, (cfg.ssm_conv - 1, w)),
+                    "state": zeros(count, (w,), torch.float32)}}
+            S = min(max_len, window) if window else max_len
+            shape = (S, cfg.n_kv, AttnDims.of(cfg).hd)
             return {"mix": {n: zeros(count, shape) for n in ("k", "v")}}
 
-        return [[one(kind, seg.count) for kind, _, _ in seg.kinds]
+        return [[one(kind, window, seg.count) for kind, _, window in seg.kinds]
                 for seg in self.segments]
 
 

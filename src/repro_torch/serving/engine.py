@@ -6,9 +6,11 @@ The decode loop keeps one stacked cache tree of fixed capacity
 ``Model.decode_step`` over all slots with **per-slot positions**: RoPE at
 each slot's position, the new K/V written at each slot's own offset, and
 decode attention with per-slot lengths — what lets sequences of different
-lengths share a batch. Slots are recycled as sequences retire; inactive
-slots still compute (dead lanes, their writes clamped inside the capacity)
-and are left out of the results, as a fixed-shape serving binary would.
+lengths share a batch. A local-attention layer's leaves hold ``min(capacity,
+window)`` slots as a ring (position p at slot ``p % S``). Slots are recycled
+as sequences retire; inactive slots still compute (dead lanes, their writes
+kept inside the capacity) and are left out of the results, as a fixed-shape
+serving binary would.
 """
 from __future__ import annotations
 
@@ -73,14 +75,23 @@ class DecodeBatch:
         self._tok = np.zeros((max_slots,), np.int64)
         self._pos = np.zeros((max_slots,), np.int64)
 
+    def _leaf_window(self, path) -> int:
+        """Local-attention window of the sublayer owning this cache leaf
+        (0 = full); paths are (segment, sublayer, "mix", leaf)."""
+        return self.model.segments[path[0]].kinds[path[1]][2]
+
+    def _leaf_capacity(self, path) -> int:
+        w = self._leaf_window(path)
+        return min(self.capacity, w) if w else self.capacity
+
     def _build(self, example_cache: Any) -> None:
         def empty(path, leaf):
-            # [count, 1, S, ...] token leaf -> [count, n, capacity, ...]
+            # [count, 1, S, ...] token leaf -> [count, n, leaf capacity, ...]
             # [count, 1, ...]    state leaf -> [count, n, ...]
             shp = list(leaf.shape)
             shp[1] = self.max_slots
             if is_token_leaf_path(path):
-                shp[2] = self.capacity
+                shp[2] = self._leaf_capacity(path)
             return torch.zeros(shp, dtype=leaf.dtype, device=leaf.device)
         self._stacked = tree_map_with_path(empty, example_cache)
 
@@ -97,8 +108,13 @@ class DecodeBatch:
         def write(path, big, small):
             x = small[:, 0]                     # [count, S, ...] / [count, ...]
             if is_token_leaf_path(path):
-                n = x.shape[1]
-                if n > big.shape[2]:
+                n, cap = x.shape[1], big.shape[2]
+                if self._leaf_window(path) and n == cap and n_tokens > cap:
+                    # a window-cropped leaf holds positions [n_tokens - cap,
+                    # n_tokens) at [0, cap): roll it into the ring order
+                    # (position p at slot p % cap) that decode writes in
+                    x = torch.roll(x, (n_tokens - cap) % cap, dims=1)
+                if n > cap:
                     raise ValueError("sequence longer than decode capacity")
                 big[:, slot, :n] = x
                 big[:, slot, n:] = 0

@@ -192,7 +192,7 @@ def test_q_to_kv_map_nonuniform_at_full_width():
 
 
 def test_unsupported_family_raises():
-    cfg = dataclasses.replace(SMOKES["smollm-360m"], window=8)
+    cfg = dataclasses.replace(SMOKES["smollm-360m"], n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
 

@@ -288,8 +288,9 @@ def test_full_width_plan_and_ssd_shapes():
 
 
 def test_hybrid_still_raises():
-    cfg = dataclasses.replace(SMOKES[ARCH], family="hybrid",
-                              block_pattern=("rec", "rec", "attn"))
+    """The hybrid family is served now; MLA (a family still to port) is
+    refused."""
+    cfg = dataclasses.replace(SMOKES[ARCH], use_mla=True)
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
 
