@@ -8,12 +8,15 @@ Phases, in order; any failure exits non-zero before a result is printed:
   2. kernels — each Hopper kernel against its plain PyTorch version on the
      card, with its time, the plain version's, one PyTorch library call's
      where one computes the same function (``scaled_dot_product_attention``
-     for attention, timed here as a yardstick only; none for the SSD scan
-     and the RG-LRU recurrence) and the bound (the larger of the flop time
-     at the dtype's peak and the byte time at 3.35 TB/s). Times are device
-     times: ``REPS`` calls captured in one CUDA graph and replayed, so the
-     host's launch cost is left out; the eager time per call (host
-     included) is printed beside;
+     for attention, on K/V expanded to the query heads, timed here as a
+     yardstick only; none for the SSD scan and the RG-LRU recurrence) and
+     the bound (the larger of the flop time at the dtype's peak and the
+     byte time at 3.35 TB/s, counting the stored KV heads). The attention
+     kernels take the stored KV heads and the query-head -> KV-head map:
+     16 heads over 16, smollm's 16 over 5, recurrentgemma's 16 over 1.
+     Times are device times: ``REPS`` calls captured in one CUDA graph and
+     replayed, so the host's launch cost is left out; the eager time per
+     call (host included) is printed beside;
   3. serve — behind ``DisaggServer``, random weights from seed 0, bf16:
      full-width smollm-360m on 16 requests (flash and decode attention),
      full-width mamba2-1.3b on an agent-style stream whose follow-ups
@@ -21,7 +24,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
      on an agent stream of ~2.1k-token prompts past its 2048 window (the
      RG-LRU scan and both attention kernels at head dim 256 with the
      window); each path's launch counters are zeroed just before its run
-     and read just after;
+     and read just after; 3a prints the device time of ``index_select``
+     (no K/V expansion is left, only the embedding lookup), 3c the share of
+     device time of each attention kernel;
   4. whole model — each model in float32 through the kernels on the card
      and through the plain versions on the CPU: prefill of a prompt (256
      tokens; 2112 for recurrentgemma-9b, cut to depth 5) and 4 decode steps
@@ -109,18 +114,41 @@ def bound_ms(flops, nbytes, dtype):
 
 
 # ------------------------------------------------------------------ phase 2
+def kv_map_of(H, kv_heads):
+    """The query-head -> KV-head map of ``kv_heads`` stored heads, int32 on
+    the card (None when every query head has its own): one head for MQA,
+    else smollm-360m's ``min(h // rep, kv_heads - 1)`` with rep = 3 over 5
+    heads, whose 16th (padded) head joins the last group."""
+    if kv_heads == H:
+        return None
+    rep = max(1, (H - 1) // kv_heads) if kv_heads > 1 else H
+    return torch.tensor([min(h // rep, kv_heads - 1) for h in range(H)],
+                        dtype=torch.int32, device="cuda")
+
+
+def expanded(x, kv_map):
+    """K/V at the query heads for the SDPA yardstick, as the rows before
+    the map were timed: a stride-0 view of one KV head, the heads copied
+    through the map else."""
+    from repro_torch.kernels.attn_split import expand_kv
+    if x.shape[2] == 1 and kv_map is not None:
+        return x.expand(-1, -1, kv_map.numel(), -1)
+    return expand_kv(x, kv_map)
+
+
 def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
                B=1, H=16, kv_heads=None):
-    """``kv_heads`` (default ``H``) KV heads expanded to the ``H`` query
-    heads as the model does for one KV head: a stride-0 view."""
+    """K/V hold ``kv_heads`` (default ``H``) stored heads, read through the
+    map as the model passes them."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     Hk = kv_heads or H
     g = torch.Generator(device="cuda").manual_seed(T * 7 + S + D)
     q = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
     k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
-            .expand(-1, -1, H, -1) for _ in range(2))
-    kw = dict(causal=causal, q_offset=q_offset, window=window)
+            for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, window=window,
+              kv_map=kv_map_of(H, Hk))
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -136,7 +164,8 @@ def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
     pairs = int(mask.sum())               # (query, key) pairs this data needs
     flops = 4.0 * B * H * D * pairs
     nbytes = (2 * B * T * H * D + 2 * B * S * Hk * D) * q.element_size()
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qt = q.transpose(1, 2)
+    kt, vt = (expanded(x, kw["kv_map"]).transpose(1, 2) for x in (k, v))
     if causal and not window and q_offset == 0 and T == S:
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)
@@ -156,23 +185,28 @@ def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None):
     g = torch.Generator(device="cuda").manual_seed(S + D)
     q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
     k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
-            .expand(-1, -1, H, -1) for _ in range(2))
+            for _ in range(2))
+    kv_map = kv_map_of(H, Hk)
     lengths = torch.tensor([1, S, 0, 17, 128, 129, S // 2, S - 24],
                            dtype=torch.int32, device="cuda")[:B]
-    got = decode_attention(q, k, v, lengths)
-    want = decode_attention_plain(q, k, v, lengths)
+    got = decode_attention(q, k, v, lengths, kv_map=kv_map)
+    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map)
     torch.cuda.synchronize()
-    name = f"decode_attention[B={B},S={S},D={D},{str(dtype)[6:]}]"
+    name = (f"decode_attention[B={B},S={S},D={D},Hk={Hk},"
+            f"{str(dtype)[6:]}]")
     err = check(name, got, want, TOL[dtype])
     keys = int(lengths.sum())
     flops = 4.0 * H * D * keys
     nbytes = (2 * keys * Hk * D + 2 * B * H * D) * q.element_size() + 4 * B
     mask = (torch.arange(S, device="cuda")[None] < lengths[:, None])
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    qt = q[:, :, None]
+    kt, vt = (expanded(x, kv_map).transpose(1, 2) for x in (k, v))
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[:, None, None])
-    return _timed(name, lambda: decode_attention(q, k, v, lengths),
-                  lambda: decode_attention_plain(q, k, v, lengths), lib,
+    return _timed(name,
+                  lambda: decode_attention(q, k, v, lengths, kv_map=kv_map),
+                  lambda: decode_attention_plain(q, k, v, lengths,
+                                                 kv_map=kv_map), lib,
                   flops, nbytes, dtype, err)
 
 
@@ -312,8 +346,12 @@ def phase_kernels():
         r = decode_case(dtype)
         if dtype is torch.bfloat16:
             main["decode_attention"] = r
+        # smollm-360m's real GQA: 16 padded query heads over 5 KV heads
+        flash_case("GQA 16->5 T=S=512 D=64", dtype, 512, 512, 64,
+                   kv_heads=5)
+        decode_case(dtype, kv_heads=5)
         # recurrentgemma-9b's local attention: 16 query heads over one
-        # stride-0 KV head, head dim 256, window 2048
+        # stored KV head, head dim 256, window 2048
         flash_case("D=256 window=2048 T=S=2112 MQA", dtype, 2112, 2112, 256,
                    window=2048, kv_heads=1)
         flash_case("D=256 window=2048 suffix T=32 S=2080 q_offset=2048 MQA",
@@ -425,6 +463,15 @@ def serve_profiled(model, reqs, capacity=1024):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
             f"{e.count:6d} calls  {e.key[:90]}")
+    return rows, busy
+
+
+def device_share(rows, busy, word):
+    """Device ms, calls and share of busy time of the kernels whose name
+    holds ``word`` (case and underscores ignored)."""
+    hit = [e for e in rows if word in e.key.lower().replace("_", "")]
+    ms = sum(e.self_device_time_total for e in hit) / 1e3
+    return ms, sum(e.count for e in hit), ms / 1e3 / busy
 
 
 def _model(cfg, dtype):
@@ -453,7 +500,12 @@ def phase_serve_smollm():
     assert any(r.reused_tokens >= 32 for r in res), "no prefix reuse"
     assert launches["flash_attention"] >= len(reqs) * cfg.n_layers, launches
     assert launches["decode_attention"] >= cfg.n_layers * steps, launches
-    serve_profiled(model, reqs)
+    rows, busy = serve_profiled(model, reqs)
+    # the kernels read the 5 stored KV heads through the map: no expansion
+    # copy of K/V (index_select) is left on the path
+    ms, n, share = device_share(rows, busy, "indexselect")
+    log(f"  index_select kernels (the embedding lookup's among them): "
+        f"{ms:.2f} ms over {n} calls, {share:.3f} of device busy time")
     return launches
 
 
@@ -502,7 +554,11 @@ def phase_serve_hybrid():
     assert launches["rglru_scan"] >= n_rec * (len(reqs) + steps), launches
     assert launches["flash_attention"] >= n_attn * len(reqs), launches
     assert launches["decode_attention"] >= n_attn * steps, launches
-    serve_profiled(model, reqs, capacity=4096)
+    rows, busy = serve_profiled(model, reqs, capacity=4096)
+    for word in ("flashmmakernel", "decodekernel", "combinekernel"):
+        ms, n, share = device_share(rows, busy, word)
+        log(f"  {word}: {ms:.2f} ms over {n} calls, {share:.3f} of device "
+            f"busy time")
     return launches
 
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so``
 at the repository root (listed in ``.gitignore``), keyed on a hash of the
-source and the flags, then loaded with ``ctypes``. Nothing here runs at
-import: a machine without ``nvcc`` imports the kernel modules cleanly and
-fails only when a CUDA tensor needs a kernel.
+source, the headers it includes (``DEPS``) and the flags, then loaded with
+``ctypes``. Nothing here runs at import: a machine without ``nvcc``
+imports the kernel modules cleanly and fails only when a CUDA tensor needs
+a kernel.
 """
 from __future__ import annotations
 
@@ -17,11 +18,14 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-__all__ = ["load", "build_all", "SOURCES", "CSRC", "BUILD_DIR"]
+__all__ = ["load", "build_all", "SOURCES", "DEPS", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+#: the headers under ``csrc/`` each source includes: a change rebuilds it
+DEPS = {"flash_attention": ("attn_split.cuh",),
+        "decode_attention": ("attn_split.cuh",)}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +45,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for dep in DEPS.get(name, ()):
+        h.update((CSRC / dep).read_bytes())
+    h.update(" ".join(FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -3,44 +3,64 @@ plain PyTorch version, the wrapper and the kernel's cost count.
 
 Replaces the TPU kernel
 ``repro/kernels/decode_attention.py::decode_attention`` (Pallas). On the
-H100 this kernel is bound by the bytes of the KV cache it reads (about one
-flop per byte); this first design reads only the keys below each sequence's
-length, with one block per (sequence, head). Splitting the KV axis over
-blocks (flash-decoding) is left to the kernel's redesign.
+H100 this kernel is bound by the bytes of the KV cache it reads while few
+query heads share a KV head; with 16 on one (MQA) each bf16 K/V element
+feeds 16 products, 32 flops a byte, which is past the ~20 flop/byte ridge
+of the float32 CUDA cores it computes on, so there the arithmetic binds
+(see the CUDA source). It is flash-decoding over the stored KV heads: a block
+takes one sequence, one stored KV head and one chunk of keys, and serves
+every query head that ``kv_map`` sends to that KV head, so each K/V row is
+read once; the chunks' float32 partials are merged by one combine kernel.
+The number of chunks comes from S and the grid's other axes, chosen here
+from Python ints: neither ``lengths`` nor ``kv_map`` is read on the host.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. ``decode_attention.launches`` counts kernel launches.
+raises. ``decode_attention.launches`` counts wrapper calls that launched.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .flash_attention import HEAD_DIMS, _DTYPES
+from .attn_split import DTYPES, aligned, check_kv_map, expand_kv, sm_count
+from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_cost"]
 
-#: the plain PyTorch version of the kernel: the oracle of ``ref.py``
-decode_attention_plain = decode_attention_ref
+TILE = 64               # keys a tile of the kernel; a chunk is a multiple
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: Optional[float] = None,
+                           kv_map: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The plain PyTorch version: K/V expanded through ``kv_map``, then the
+    oracle of ``ref.py``."""
+    return decode_attention_ref(q, expand_kv(k, kv_map), expand_kv(v, kv_map),
+                                lengths, scale=scale)
 
 
 def decode_attention_cost(n_seqs: int, n_heads: int, head_dim: int,
                           ctx: int, *, block_k: int = 128,
                           dtype_bytes: int = 2) -> tuple:
-    """Per-layer (flops, hbm_bytes) of one batched decode-attention step
-    with this kernel's tiling, for ``StageProfile.decode_step_roofline``.
+    """Per-layer (flops, hbm_bytes) of one batched decode-attention step,
+    for ``StageProfile.decode_step_roofline``.
 
-    The kernel scores exactly the ``ctx`` keys below the length (no head-dim
-    padding, no padded KV block), so per sequence and head it runs
-    ``4 * head_dim * ctx`` flops and reads K and V once plus q and the
-    output. ``block_k`` is the keys scored per step; it changes neither
-    count and stays for the signature the shared ``StageProfile`` calls.
+    ``n_heads`` is the stored KV heads (what ``StageProfile`` passes),
+    which is what the kernel reads: each K/V row once, for all the query
+    heads that share it, exactly the ``ctx`` keys below the length (no
+    head-dim padding, no padded KV block), plus q and the output a KV head.
+    The flops, ``4 * head_dim * ctx`` a KV head, count one query head of
+    each group: the step is bound by the bytes. ``block_k`` changes
+    neither count and stays for the signature ``StageProfile`` calls.
     """
     S = max(int(ctx), 1)
     flops = n_seqs * 4.0 * n_heads * head_dim * S
@@ -54,47 +74,90 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I,
-                       L, L, L, L, L, L, L, L, ctypes.c_float, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                       L, L, L, L, L, L, L, L, ctypes.c_float, I, I, I, I, P]
         fn.restype = ctypes.c_int
+        lib.decode_attention_cap.argtypes = [I]
+        lib.decode_attention_cap.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _cap(D: int) -> int:
+    """The most query heads one block of the kernel holds at head dim D."""
+    return _lib().decode_attention_cap(D)
+
+
+def split_plan(B: int, H: int, Hk: int, S: int, *, cap: int, sms: int,
+               per_sm: int = 4) -> Tuple[int, int, int]:
+    """(chunk, n_split, n_hb): query heads in groups of ``cap`` (``n_hb``
+    blocks a KV head only when one group would hold more), and S cut into
+    ``n_split`` chunks of ``chunk`` keys (a multiple of the tile) so that
+    the grid covers the SMs about ``per_sm`` times. On the H100 (two runs
+    of ``tools/attention_probe.py``) 1, 2 and 4 were within their
+    run-to-run spread at 16 KV heads and at recurrentgemma's MQA, and 4
+    was the fastest at smollm's 16 -> 5 GQA in both."""
+    cap = min(cap, H)
+    n_hb = -(-H // cap)
+    blocks = B * Hk * n_hb
+    tiles = max(1, -(-S // TILE))
+    n_split = min(tiles, max(1, -(-per_sm * sms // blocks)))
+    chunk = -(-tiles // n_split) * TILE
+    return chunk, -(-S // chunk) if S else 1, n_hb
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,D]; k/v: [B,S,H,D]; lengths: [B] valid cache slots."""
+                     scale: Optional[float] = None,
+                     kv_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [B,H,D]; k/v: [B,S,Hk,D], the stored KV heads; lengths: [B] valid
+    cache slots; ``kv_map``: int32 [H] on q's device, query head -> KV head
+    (None: Hk == H)."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, scale=scale)
+        return decode_attention_plain(q, k, v, lengths, scale=scale,
+                                      kv_map=kv_map)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     B, H, D = q.shape
-    S = k.shape[1]
-    if k.shape != (B, S, H, D) or v.shape != (B, S, H, D) \
+    S, Hk = k.shape[1], k.shape[2]
+    if k.shape != (B, S, Hk, D) or v.shape != (B, S, Hk, D) \
             or lengths.shape != (B,):
         raise ValueError(f"decode_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, "
                          f"{tuple(lengths.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}; the kernel takes float32 or bfloat16")
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("decode_attention: q, k, v on different devices")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    check_kv_map("decode_attention", kv_map, H, Hk, q.device)
+    q, k, v = aligned(q), aligned(k), aligned(v)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    chunk, n_split, n_hb = split_plan(B, H, Hk, S, cap=_cap(D),
+                                      sms=sm_count(q.device))
+    opart = lse = None
+    if n_split > 1:
+        opart = torch.empty((n_split, B * H, D), dtype=torch.float32,
+                            device=q.device)
+        lse = torch.empty((n_split, B * H), dtype=torch.float32,
+                          device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], B, S, H, D,
+        None if kv_map is None else kv_map.data_ptr(), out.data_ptr(),
+        None if opart is None else opart.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        DTYPES[q.dtype], B, S, H, Hk, D,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), float(scale), stream)
+        v.stride(0), v.stride(1), v.stride(2), float(scale),
+        chunk, n_split, n_hb, min(_cap(D), H), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -1,7 +1,8 @@
 """Entry points of the model's kernels.
 
-``attention`` (q:[B,T,H,D], k/v:[B,S,H,D], heads already aligned),
-``decode_attention`` (q:[B,H,D], k/v:[B,S,H,D], lengths:[B]), ``ssd``
+``attention`` (q:[B,T,H,D], k/v:[B,S,Hk,D]), ``decode_attention``
+(q:[B,H,D], k/v:[B,S,Hk,D], lengths:[B]), both with an optional int32
+``kv_map`` [H] sending query heads to the Hk stored KV heads, ``ssd``
 (Mamba2 SSD) and ``rglru`` (the RG-LRU recurrence, a/x:[B,T,W]) run the
 Hopper kernels on CUDA tensors and plain PyTorch on CPU tensors. There is
 no switch and no fallback: a CUDA tensor the kernel cannot take raises.

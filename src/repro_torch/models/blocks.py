@@ -74,9 +74,10 @@ class Attention(nn.Module):
                         device=device)
         self.wo = Dense(dims.n_q * dims.hd, d, dtype=dtype, device=device)
         self.real_rows = cfg.n_heads * dims.hd
-        # the q->kv map lives on the model's device: no copy per call
-        self.register_buffer("qmap", dims.q_to_kv(cfg).to(device),
-                             persistent=False)
+        # the q->kv map the attention kernels read, int32 on the model's
+        # device: made once, never converted or copied per call
+        self.register_buffer("kv_map", dims.q_to_kv(cfg).to(
+            device=device, dtype=torch.int32), persistent=False)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -89,22 +90,6 @@ class Attention(nn.Module):
 def attn_init(cfg: ArchConfig, *, dtype=torch.bfloat16,
               device=None) -> Attention:
     return Attention(cfg, dtype=dtype, device=device)
-
-
-def _expand_kv(x: torch.Tensor, qmap: torch.Tensor, n_kv: int
-               ) -> torch.Tensor:
-    """[B,S,n_store,hd] -> [B,S,n_q,hd] through the static q->kv map
-    (``n_kv`` heads), clamped to the stored heads (a decode cache of an MHA
-    model keeps only the real heads). One kv head (MQA) expands as a
-    stride-0 view; otherwise the heads are copied."""
-    n_store = x.shape[2]
-    if n_store == qmap.numel():
-        return x
-    if n_store == 1:
-        return x.expand(-1, -1, qmap.numel(), -1)
-    if n_store < n_kv:
-        qmap = qmap.clamp(max=n_store - 1)
-    return x.index_select(2, qmap)
 
 
 def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
@@ -120,7 +105,12 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     prefill cache into that order). Every slot of the ring is valid once
     ``pos + 1 >= S`` and the first ``pos + 1`` are before, so decode
     attention runs with ``lengths = min(pos + 1, S)`` in both cases: the
-    order of the keys does not matter to it."""
+    order of the keys does not matter to it.
+
+    The kernels take the stored KV heads and the query-head -> KV-head map
+    (``p.kv_map``), which they clamp to the stored heads: the JAX model's
+    ``jnp.minimum(q_to_kv, n_store - 1)``, for a decode cache of a padded
+    MHA model that keeps only the real heads."""
     B, T, _ = x.shape
     dims = AttnDims.of(cfg)
     q = p.wq(x).reshape(B, T, dims.n_q, dims.hd)
@@ -134,12 +124,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 
-    def expand(t):
-        return _expand_kv(t, p.qmap, dims.n_kv)
-
     if mode == "decode":
         assert cache is not None and T == 1
-        ck, cv = cache["k"], cache["v"]                        # [B,S,n_kv,hd]
+        ck, cv = cache["k"], cache["v"]                      # [B,S,n_store,hd]
         S, n_store = ck.shape[1], ck.shape[2]
         # written in place: a local layer at pos % S of its ring; a full
         # one at pos, a position past the capacity clamped to the last slot,
@@ -149,8 +136,8 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         ck[rows, slot] = k[:, 0, :n_store].to(ck.dtype)
         cv[rows, slot] = v[:, 0, :n_store].to(cv.dtype)
         lengths = (pos + 1).clamp(max=S)
-        out = kops.decode_attention(q[:, 0], expand(ck), expand(cv),
-                                    lengths)[:, None]
+        out = kops.decode_attention(q[:, 0], ck, cv, lengths,
+                                    kv_map=p.kv_map)[:, None]
         new_cache = {"k": ck, "v": cv}
     elif cache is not None:
         # suffix prefill over a reused prefix holding positions [pos-Pk, pos):
@@ -158,13 +145,13 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         Pk = cache["k"].shape[1]
         k_all = torch.cat([cache["k"], k], 1)
         v_all = torch.cat([cache["v"], v], 1)
-        out = kops.attention(q, expand(k_all), expand(v_all), causal=True,
-                             q_offset=Pk, window=window)
+        out = kops.attention(q, k_all, v_all, causal=True, q_offset=Pk,
+                             window=window, kv_map=p.kv_map)
         keep = min(window, Pk + T) if window else Pk + T
         new_cache = {"k": k_all[:, -keep:], "v": v_all[:, -keep:]}
     else:
-        out = kops.attention(q, expand(k), expand(v), causal=True,
-                             window=window)
+        out = kops.attention(q, k, v, causal=True, window=window,
+                             kv_map=p.kv_map)
         keep = min(window, T) if window else T
         new_cache = {"k": k[:, T - keep:], "v": v[:, T - keep:]}
     y = p.wo(out.reshape(B, T, dims.n_q * dims.hd))

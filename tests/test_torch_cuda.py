@@ -112,6 +112,128 @@ def test_decode_kernel_matches_plain_on_card(dtype):
                                rtol=_tol(dtype))
 
 
+# smollm-360m's padded map: 15 heads in groups of 3 over 5 KV heads, the
+# padded 16th on the last (min(h // 3, 4)); MQA sends all 16 to one head
+MAPS = {"gqa16to5": (5, [min(h // 3, 4) for h in range(16)]),
+        "mqa16to1": (1, [0] * 16)}
+
+
+def _kv(dev, g, B, S, Hk, D, tdt):
+    return (torch.randn(B, S, Hk, D, generator=g, device=dev).to(tdt)
+            for _ in range(2))
+
+
+def _map(dev, name):
+    Hk, m = MAPS[name]
+    return Hk, torch.tensor(m, dtype=torch.int32, device=dev)
+
+
+def _flash_check(dev, dtype, T, S, D, *, kv="gqa16to5", B=1, seed=0, **kw):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tdt = DTYPES[dtype]
+    Hk, kv_map = _map(dev, kv)
+    q = torch.randn(B, T, 16, D, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, B, S, Hk, D, tdt)
+    got = flash_attention(q, k, v, kv_map=kv_map, **kw)
+    want = flash_attention_plain(q, k, v, kv_map=kv_map, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,T,S,D,window", [
+    ("gqa16to5", 512, 512, 64, 0), ("mqa16to1", 512, 512, 64, 0),
+    ("mqa16to1", 300, 300, 256, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_kv_map_on_card(kv, T, S, D, window, dtype):
+    """K/V hold the stored heads only and the kernel reads them through
+    the map: smollm's non-uniform 16 -> 5 map, MQA from one head."""
+    _flash_check(_card(), dtype, T, S, D, kv=kv, seed=T + D, causal=True,
+                 window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 17, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_split_kv_suffix_on_card(T, dtype):
+    """A short suffix over recurrentgemma's cropped window cache: 16 heads
+    over one KV head, D = 256, q_offset 2048, window 2048; the bfloat16
+    kernel splits each query tile's keys into chunks and merges them."""
+    _flash_check(_card(), dtype, T, 2048 + T, 256, kv="mqa16to1", seed=T,
+                 causal=True, q_offset=2048, window=2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("T,S,qoff,causal", [
+    (100, 100, 0, True), (37, 133, 96, True), (70, 45, 0, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_ragged_tiles_on_card(D, T, S, qoff, causal, dtype):
+    """T and S not multiples of 64, at every head dim: the ragged query
+    rows are not written, the ragged keys are masked."""
+    _flash_check(_card(), dtype, T, S, D, seed=D + T, causal=causal,
+                 q_offset=qoff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_fully_masked_rows_give_zero_on_card(dtype):
+    """A negative offset puts the first rows before every key: they see
+    no key and give 0."""
+    got = _flash_check(_card(), dtype, 70, 70, 64, seed=3, causal=True,
+                       q_offset=-5)
+    assert torch.all(got[0, :5] == 0) and torch.all(got[0, 5:].abs().sum(-1)
+                                                     > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,S,D", [
+    ("gqa16to5", 1024, 64), ("gqa16to5", 2048, 64), ("mqa16to1", 1024, 256),
+    ("mqa16to1", 2048, 256), ("gqa16to5", 40, 64), ("mqa16to1", 40, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_kv_map_on_card(kv, S, D, dtype):
+    """B = 8 sequences over the stored heads through the map, lengths 0, 1,
+    S and ragged ones; S = 40 is shorter than one chunk."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    tdt = DTYPES[dtype]
+    Hk, kv_map = _map(dev, kv)
+    q = torch.randn(8, 16, D, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, 8, S, Hk, D, tdt)
+    lengths = torch.tensor([0, 1, S, S - 24, 17, 65, S // 2, S - 1],
+                           dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths, kv_map=kv_map)
+    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    assert torch.all(got[0] == 0)                    # length 0 gives 0
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_cannot_take_on_card():
+    """No fallback: a map of the wrong length, dtype or device, a head dim
+    outside HEAD_DIMS or a dtype other than bf16/f32 raises."""
+    dev = _card()
+    q = torch.zeros(1, 8, 16, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 5, 64, device=dev, dtype=torch.bfloat16)
+    lengths = torch.ones(1, dtype=torch.int32, device=dev)
+    good = torch.zeros(16, dtype=torch.int32, device=dev)
+    for bad in (None, good[:15], good.long(), good.cpu()):
+        with pytest.raises(ValueError):
+            flash_attention(q, k, k, kv_map=bad)
+        with pytest.raises(ValueError):
+            decode_attention(q[:, 0], k, k, lengths, kv_map=bad)
+    q48 = torch.zeros(1, 8, 16, 48, device=dev, dtype=torch.bfloat16)
+    k48 = torch.zeros(1, 8, 5, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(q48, k48, k48, kv_map=good)
+    with pytest.raises(ValueError):
+        flash_attention(q.half(), k.half(), k.half(), kv_map=good)
+
+
 def _ssd_inputs(dev, Bz, T, H=64, hd=64, N=128, with_init=True, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
 
