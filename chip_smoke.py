@@ -6,14 +6,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
   1. environment — the card's name and power limit, then the build of every
      CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, in parallel);
   2. kernels — each Hopper kernel against its plain PyTorch version on the
-     card, with its time, the plain version's, one PyTorch library call's
-     where one computes the same function (``scaled_dot_product_attention``
-     for attention, on K/V expanded to the query heads, timed here as a
-     yardstick only; none for the SSD scan and the RG-LRU recurrence) and
-     the bound (the larger of the flop time at the dtype's peak and the
-     byte time at 3.35 TB/s, counting the stored KV heads). The attention
-     kernels take the stored KV heads and the query-head -> KV-head map:
-     16 heads over 16, smollm's 16 over 5, recurrentgemma's 16 over 1.
+     card (both SSD paths, the in-place decode, ``rglru_scan`` eagerly and
+     after CUDA-graph replays), with its time, the plain version's, one
+     PyTorch library call's where one computes the same function
+     (``scaled_dot_product_attention`` for attention, on K/V expanded to
+     the query heads, timed here as a yardstick only; none for the SSD
+     scan and the RG-LRU recurrence) and the bound (the larger of the flop
+     time at the peak of the units the kernel runs on and the byte time at
+     3.35 TB/s, counting the stored KV heads; the SSD dual form counts its
+     products three times, 3xTF32, at the TF32 tensor-core peak). The
+     attention kernels take the stored KV heads and the query-head ->
+     KV-head map: 16 heads over 16, smollm's 16 over 5, recurrentgemma's
+     16 over 1.
      Times are device times: ``REPS`` calls captured in one CUDA graph and
      replayed, so the host's launch cost is left out; the eager time per
      call (host included) is printed beside;
@@ -25,8 +29,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
      RG-LRU scan and both attention kernels at head dim 256 with the
      window); each path's launch counters are zeroed just before its run
      and read just after; 3a prints the device time of ``index_select``
-     (no K/V expansion is left, only the embedding lookup), 3c the share of
-     device time of each attention kernel;
+     (no K/V expansion is left, only the embedding lookup), 3b that of
+     each SSD path (dual form, recurrence) and of the copies left, 3c the
+     share of device time of each attention kernel and of ``rglru_scan``;
   4. whole model — each model in float32 through the kernels on the card
      and through the plain versions on the CPU: prefill of a prompt (256
      tokens; 2112 for recurrentgemma-9b, cut to depth 5) and 4 decode steps
@@ -108,8 +113,10 @@ def check(name, got, want, tol):
     return err.max().item()
 
 
-def bound_ms(flops, nbytes, dtype):
-    t_f, t_b = flops / PEAK_FLOPS[dtype], nbytes / HBM_BW
+def bound_ms(flops, nbytes, dtype, peak=None):
+    """The larger of the operations at ``peak`` (default: the dtype's) and
+    the bytes at the HBM rate, in ms, and which of the two it is."""
+    t_f, t_b = flops / (peak or PEAK_FLOPS[dtype]), nbytes / HBM_BW
     return max(t_f, t_b) * 1e3, ("operations" if t_f >= t_b else "bytes")
 
 
@@ -211,14 +218,15 @@ def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None):
 
 
 def _timed(name, kernel, plain, lib, flops, nbytes, dtype, err,
-           plain_reps=REPS):
+           plain_reps=REPS, peak=None):
     """Device times (graph replay) of the kernel, its plain version (over
     ``plain_reps`` calls in its graph) and the library call (None where
-    there is none), with the eager time per kernel call beside."""
+    there is none), with the eager time per kernel call beside; the bound
+    counts ``flops`` at ``peak`` (default: the dtype's)."""
     ms, plain_ms = graph_ms(kernel), graph_ms(plain, plain_reps)
     lib_ms = graph_ms(lib) if lib is not None else None
     eager = time_ms(kernel)
-    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype, peak)
     lib_txt = f"{lib_ms:.4f} ms" if lib is not None else "none"
     log(f"    {name}: kernel {ms:.4f} ms (eager call {eager:.4f} ms) | "
         f"plain {plain_ms:.4f} ms ({plain_reps} calls a graph) | library "
@@ -248,22 +256,56 @@ def ssd_inputs(Bz, T, *, H=64, hd=64, N=128, with_init=True, seed=0):
     return x, B, C, dt, A, D, s0
 
 
-def ssd_case(name, Bz, T, *, with_init=True):
+TF32_PEAK = 495e12   # dense TF32 tensor cores, SXM
+
+
+def ssd_kernel_work(Bz, T, H, hd, N):
+    """(operations, peak rate) of the units the kernel ``ssd_plan`` picks
+    runs on. The recurrence: ``ssd_cost``'s 4*Bz*T*H*hd*N flops on the
+    float32 CUDA cores. The dual form: its four products over the steps
+    this T has (G = C B^T once per sequence and chunk, as the heads share
+    B and C; G o L and x over the causal pairs; C s^T and the state update
+    over every step), three TF32 products each (3xTF32) on the tensor
+    cores."""
+    from repro_torch.kernels.ssd_scan import ssd_cost, ssd_plan
+    plan = ssd_plan(Bz, T, H, hd, N)
+    if plan.path == "recurrence":
+        return ssd_cost(Bz, T, H, hd, N)[0], PEAK_FLOPS[torch.float32]
+    Q = plan.chunk
+    pairs = sum(n * (n + 1) // 2 for n in
+                (min(Q, T - t0) for t0 in range(0, T, Q)))
+    products = (2.0 * Bz * pairs * N + 2.0 * Bz * H * pairs * hd
+                + 2 * 2.0 * Bz * T * H * hd * N)
+    return 3 * products, TF32_PEAK
+
+
+def ssd_case(name, Bz, T, *, with_init=True, in_place=False):
+    """``in_place``: the final state written over the initial one, as
+    decode updates its cache."""
     from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_chunked_plain,
-                                              ssd_cost)
+                                              ssd_cost, ssd_plan)
     args = ssd_inputs(Bz, T, with_init=with_init, seed=Bz * 1000 + T)
-    y, s = ssd_chunked(*args)
+    x, N = args[0], args[1].shape[-1]
+    H, hd = x.shape[2], x.shape[3]
     yp, sp = ssd_chunked_plain(*args)
+    if in_place:
+        cache = args[6].clone()
+        call = lambda: ssd_chunked(*args[:6], cache, out_state=cache)
+    else:
+        call = lambda: ssd_chunked(*args)
+    y, s = call()
     torch.cuda.synchronize()
-    err = max(check(f"ssd_chunked[{name}] y", y, yp, SSD_TOL),
-              check(f"ssd_chunked[{name}] state", s, sp, SSD_TOL))
-    x = args[0]
-    flops, nbytes = ssd_cost(Bz, T, x.shape[2], x.shape[3],
-                             args[1].shape[-1], with_init=with_init)
+    path = ssd_plan(Bz, T, H, hd, N).path
+    label = f"ssd_chunked[{name}, {path}]"
+    err = max(check(f"{label} y", y, yp, SSD_TOL),
+              check(f"{label} state", s, sp, SSD_TOL))
+    if in_place:
+        assert s is cache, "out_state was not written in place"
+    _, nbytes = ssd_cost(Bz, T, H, hd, N, with_init=with_init)
+    ops, peak = ssd_kernel_work(Bz, T, H, hd, N)
     # no single PyTorch call computes the SSD scan: library_ms is null
-    return _timed(f"ssd_chunked[{name}]", lambda: ssd_chunked(*args),
-                  lambda: ssd_chunked_plain(*args), None, flops, nbytes,
-                  torch.float32, err)
+    return _timed(label, call, lambda: ssd_chunked_plain(*args), None, ops,
+                  nbytes, torch.float32, err, peak=peak)
 
 
 def ssd_chain_case(T=256):
@@ -295,6 +337,27 @@ def rglru_inputs(B, T, W=4096, with_init=True, seed=0):
     return a, x, s0
 
 
+def replay_check(name, fn, want, tol, replays=3):
+    """``fn`` captured once in a CUDA graph and replayed ``replays`` times,
+    its outputs poisoned with NaN before each replay; the last replay's
+    outputs are held against ``want``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(replays):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+    torch.cuda.synchronize()
+    return max(check(f"{name} graph replay {replays}, {i}", o, w, tol)
+               for i, (o, w) in enumerate(zip(out, want)))
+
+
 def rglru_case(name, B, T, W=4096, *, with_init=True):
     from repro_torch.kernels.rglru import (rglru_cost, rglru_scan,
                                            rglru_scan_plain)
@@ -304,6 +367,11 @@ def rglru_case(name, B, T, W=4096, *, with_init=True):
     torch.cuda.synchronize()
     err = max(check(f"rglru_scan[{name}] h", h, hp, RGLRU_TOL),
               check(f"rglru_scan[{name}] state", s, sp, RGLRU_TOL))
+    # the flags of the look-back are cleared by a memset inside each call:
+    # a replayed graph must start from clear flags too
+    err = max(err, replay_check(f"rglru_scan[{name}]",
+                                lambda: rglru_scan(*args), (hp, sp),
+                                RGLRU_TOL))
     flops, nbytes = rglru_cost(B, T, W, with_init)
     # the plain version is a Python loop of T steps, ~2 kernels a step: a
     # graph of 20 calls at T = 2112 would hold ~85k nodes, so long cases
@@ -363,9 +431,15 @@ def phase_kernels():
     main["ssd_chunked"] = ssd_case("prefill Bz=1 T=256", 1, 256,
                                    with_init=False)
     ssd_case("prefill Bz=1 T=256 init_state", 1, 256)
+    ssd_case("fresh Bz=1 T=288", 1, 288, with_init=False)
     ssd_case("ragged T=100 init_state", 1, 100)
+    # either side of the recurrence / dual-form threshold (32 steps; the
+    # suffix is at it)
     ssd_case("suffix T=32 init_state", 1, 32)
+    ssd_case("short T=16 init_state", 1, 16)
+    ssd_case("past the threshold T=48 init_state", 1, 48)
     ssd_case("decode Bz=8 T=1", 8, 1)
+    ssd_case("decode Bz=8 T=1 in place", 8, 1, in_place=True)
     ssd_chain_case()
     # recurrentgemma-9b's serve shapes (W = 4096), float32 as the model
     # feeds the scan
@@ -414,16 +488,37 @@ def serve_once(model, reqs, capacity):
     return res, calls, t_phase
 
 
-def serve_counted(model, reqs, kernels, capacity=1024):
+def serve_counted(model, reqs, kernels, capacity=1024, shapes=None):
     """Run 1 of a serve phase: the launch counters of ``kernels`` (their
     wrapper functions) are zeroed just before and read just after. Checks
-    the results and returns (launches, results, decode steps)."""
+    the results and returns (launches, results, decode steps). ``shapes``
+    names an entry point of ``repro_torch.kernels.ops`` ("ssd", "rglru")
+    whose calls are tallied by (batch, T, initial state given) on the way,
+    printed as the serve path's launches of each case."""
+    from repro_torch.kernels import ops
     vocab = model.cfg.vocab
     log("  run 1 (cold, counted):")
+    tally = {}
+    if shapes is not None:
+        inner = getattr(ops, shapes)
+
+        def counted(first, *a, **kw):
+            init = kw.get("init_state", a[-1] if a else None)
+            key = (first.shape[0], first.shape[1], init is not None)
+            tally[key] = tally.get(key, 0) + 1
+            return inner(first, *a, **kw)
+        setattr(ops, shapes, counted)
     for k in kernels:
         k.launches = 0
-    res, calls, _ = serve_once(model, reqs, capacity)
+    try:
+        res, calls, _ = serve_once(model, reqs, capacity)
+    finally:
+        if shapes is not None:
+            setattr(ops, shapes, inner)
     launches = {k.__name__: k.launches for k in kernels}
+    if tally:
+        log(f"  {shapes} calls by (batch, T, initial state): " + ", ".join(
+            f"{k}: {n}" for k, n in sorted(tally.items())))
     steps = max(len(r.tokens) for r in res) - 1
     log(f"  launches {launches} | prompt tokens "
         f"{sum(len(r.tokens) for r in reqs)} | reused "
@@ -520,12 +615,25 @@ def phase_serve_mamba2():
     cfg = model.cfg
     reqs = agent_requests(cfg, 13, seed=0, prompt=256, extend=32, fresh=288,
                           max_new=8)
-    launches, res, steps = serve_counted(model, reqs, (ssd_chunked,))
+    launches, res, steps = serve_counted(model, reqs, (ssd_chunked,),
+                                         shapes="ssd")
     # a follow-up resumed a warm prompt's snapshot by suffix prefill
     assert any(r.reused_tokens >= 256 for r in res), "no snapshot resumed"
     assert launches["ssd_chunked"] >= cfg.n_layers * (len(reqs) + steps), \
         launches
-    serve_profiled(model, reqs)
+    rows, busy = serve_profiled(model, reqs)
+    # each SSD path apart (the dual form runs the prefills, the recurrence
+    # the suffixes and the decode steps), and the copies left: decode
+    # writes its state in place, so no per-step memcpy of the [8, 64, 64,
+    # 128] state remains
+    for word, what in (("gramkernel", "ssd dual form, G = C B^T"),
+                       ("dualkernel", "ssd dual form, the rest"),
+                       ("reckernel", "ssd recurrence"),
+                       ("memcpy", "memcpys"),
+                       ("directcopy", "copy kernels")):
+        ms, n, share = device_share(rows, busy, word)
+        log(f"  {what}: {ms:.2f} ms over {n} calls, {share:.3f} of device "
+            f"busy time")
     return launches
 
 
@@ -546,7 +654,7 @@ def phase_serve_hybrid():
                           fresh=2144, max_new=8)
     launches, res, steps = serve_counted(
         model, reqs, (rglru_scan, flash_attention, decode_attention),
-        capacity=4096)
+        capacity=4096, shapes="rglru")
     # a follow-up resumed a warm prompt's snapshot by suffix prefill
     assert any(r.reused_tokens >= 2112 for r in res), "no snapshot resumed"
     n_attn = cfg.n_attn_layers()
@@ -555,7 +663,8 @@ def phase_serve_hybrid():
     assert launches["flash_attention"] >= n_attn * len(reqs), launches
     assert launches["decode_attention"] >= n_attn * steps, launches
     rows, busy = serve_profiled(model, reqs, capacity=4096)
-    for word in ("flashmmakernel", "decodekernel", "combinekernel"):
+    for word in ("flashmmakernel", "decodekernel", "combinekernel",
+                 "rglruscankernel", "memset"):
         ms, n, share = device_share(rows, busy, word)
         log(f"  {word}: {ms:.2f} ms over {n} calls, {share:.3f} of device "
             f"busy time")

@@ -9,150 +9,244 @@
 // Bound on the H100: one multiply-add per element read, so the bytes bound
 // it: 4 * (3*B*T*W + 2*B*W) (a and x read once, h written once, the state in
 // and out). The TPU kernel solves each time chunk with a log-depth
-// associative scan across its 128-lane vectors; here one thread owns one
-// (b, w) channel of one time chunk and steps through it with the state in a
-// register, so a warp reads 32 neighbouring channels of one step
-// (coalesced) and the dependent chain is one FMA a step; each thread keeps
-// the next kUnroll steps of a and x in flight in registers while it runs
-// the current ones. One thread a channel over all of T would leave too few
-// loads in flight at B = 1 (4096 threads, ~0.5 MB, where 3.35 TB/s needs
-// several MB), so a long T is cut into chunks of `chunk` steps, in two
-// passes:
-//   1. chunk_summary_kernel: for every chunk but the last, the product of
-//      its a and its end state from a zero start;
-//   2. rglru_scan_kernel: each chunk folds the summaries of the chunks
-//      before it into its carry (h_end = prod * h_start + end), then
-//      rescans its own steps from that carry, writing h; the last chunk
-//      writes the final state.
-// a and x are read twice, the summaries (B*(nc-1)*W*8 bytes) stay in L2. A
-// T of one chunk (decode, short suffixes) takes pass 2 alone.
+// associative scan across its 128-lane vectors and carries the state from
+// chunk to chunk in order. Here a block of kThreads threads owns kThreads
+// neighbouring channels of one time chunk of kChunk steps, one channel a
+// thread (a warp reads 32 neighbouring channels of one step: coalesced),
+// and every (channel block, chunk) runs at once, in one pass that reads a
+// and x once (decoupled look-back, as in a single-pass prefix scan):
+//   1. each block takes its (chunk, sequence, channel block) from an atomic
+//      ticket, chunk-major, so a block's predecessor in time started
+//      before it and is resident or done: waiting on it cannot deadlock
+//      (numbering by blockIdx could leave a waiter resident and its
+//      predecessor unscheduled);
+//   2. it copies its chunk of a and x into shared memory by cp.async, 16
+//      bytes (4 channels) a copy where the rows allow, all in flight at
+//      once (loops over the steps, not unrolled into registers, keep the
+//      code small for short T), and scans them from zero: (prod a, end
+//      state);
+//   3. it publishes that aggregate with a flag, then one warp looks back
+//      over the flags of 32 predecessors at once for the nearest published
+//      inclusive end with only aggregates between; those compose into its
+//      carry; chunk 0's inclusive end is the initial state run through it;
+//   4. it publishes its own inclusive end, rescans its chunk from shared
+//      memory from the true carry writing h, and the last chunk writes the
+//      final state.
+// The flags live in a buffer the wrapper allocates and this file clears
+// with one cudaMemsetAsync on the call's stream before every launch, so
+// a call replayed from a CUDA graph starts from clear flags too (an epoch
+// passed as an argument would be frozen in the graph). A T of one chunk
+// (decode, short suffixes) runs the same kernel with no ticket, flag or
+// memset.
 //
 // Plain C interface (bound from Python with ctypes). The caller allocates h
-// [B,T,W], the final state [B,W] and, for more than one chunk, the
-// summaries [2, B, nc-1, W], all contiguous; a and x may be strided except
-// along W, the initial state is contiguous.
+// [B,T,W] and the final state [B,W] contiguous and, for more than one
+// chunk, the carries [3, B, nc-1, W] float32 and the flags [1 + B*nwb*nc]
+// int32 (nwb = ceil(W / kThreads)); a and x may be strided except along W,
+// the initial state is contiguous.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kUnroll = 16;  // steps of a and x loaded ahead
+constexpr int kThreads = 64;  // channels a block
+constexpr int kChunk = 64;    // time steps a block
 
-struct Steps {
-  float a[kUnroll], x[kUnroll];
-};
-
-// Steps [t0, t0 + kUnroll) of one channel; from t1 on, a = 1 and x = 0 keep
-// the state exactly (fmaf(1, s, 0) == s) and nothing is stored.
-__device__ __forceinline__ void load_steps(Steps& s,
-                                           const float* __restrict__ ab,
-                                           const float* __restrict__ xb,
-                                           long long a_st, long long x_st,
-                                           int t0, int t1) {
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int t = t0 + u;
-    s.a[u] = t < t1 ? __ldg(ab + t * a_st) : 1.f;
-    s.x[u] = t < t1 ? __ldg(xb + t * x_st) : 0.f;
-  }
-}
-
-// Runs steps [t0, t1) of one channel from `state`; with `hb` set, writes
-// h_t at hb[t * W]; with `prod` set, multiplies the a's into it.
-__device__ __forceinline__ float run_steps(const float* __restrict__ ab,
-                                           const float* __restrict__ xb,
-                                           float* __restrict__ hb,
-                                           long long a_st, long long x_st,
-                                           int W, int t0, int t1, float state,
-                                           float* prod) {
-  Steps cur, nxt;
-  load_steps(cur, ab, xb, a_st, x_st, t0, t1);
-  for (int g = t0; g < t1; g += kUnroll) {
-    load_steps(nxt, ab, xb, a_st, x_st, g + kUnroll, t1);  // in flight below
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      state = fmaf(cur.a[u], state, cur.x[u]);
-      if (prod != nullptr) *prod *= cur.a[u];
-      if (hb != nullptr && g + u < t1)
-        hb[static_cast<long long>(g + u) * W] = state;
-    }
-    cur = nxt;
-  }
-  return state;
-}
+enum : int { kEmpty = 0, kAggregate = 1, kInclusive = 2 };
 
 struct Args {
   const float* a;
   const float* x;
+  const float* s0;
+  float* h;
+  float* sf;
+  float* carries;  // [3][B][nc-1][W]: prod a, end from zero, inclusive end
+  int* flags;      // [0]: the ticket; then [B][nwb][nc]
   long long a_sb, a_st, x_sb, x_st;
-  int T, W, chunk, nc;
+  int B, T, W, nc, nwb;
+  int v16;  // rows of a and x start on 16 bytes and W % 4 == 0
 };
 
-__global__ void __launch_bounds__(kThreads)
-chunk_summary_kernel(Args p, float* __restrict__ prod,
-                     float* __restrict__ end) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  const int c = blockIdx.y, b = blockIdx.z;
-  if (w >= p.W) return;
-  const int t0 = c * p.chunk;
-  float pr = 1.f;
-  const float e = run_steps(p.a + b * p.a_sb + w, p.x + b * p.x_sb + w,
-                            nullptr, p.a_st, p.x_st, p.W, t0, t0 + p.chunk,
-                            0.f, &pr);
-  const long long off = (static_cast<long long>(b) * (p.nc - 1) + c) * p.W + w;
-  prod[off] = pr;
-  end[off] = e;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
 }
 
-__global__ void __launch_bounds__(kThreads)
-rglru_scan_kernel(Args p, const float* __restrict__ s0,
-                  const float* __restrict__ prod,
-                  const float* __restrict__ end, float* __restrict__ h,
-                  float* __restrict__ sf) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  const int c = blockIdx.y, b = blockIdx.z;
-  if (w >= p.W) return;
-  float state = s0 != nullptr ? s0[static_cast<long long>(b) * p.W + w] : 0.f;
-  const long long sum0 = static_cast<long long>(b) * (p.nc - 1) * p.W + w;
+__device__ __forceinline__ int load_flag(const int* f) {
+  return *reinterpret_cast<const volatile int*>(f);
+}
+
+// Makes this block's writes to `carries` visible device-wide, then raises
+// the flag (one thread).
+__device__ __forceinline__ void publish(int* flag, int v) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *reinterpret_cast<volatile int*>(flag) = v;
+}
+
+// The nearest chunk before c whose inclusive end is published, once every
+// chunk between has published its aggregate. One warp reads the flags of
+// 32 predecessors at once, nearest in lane 0, and spins until that holds;
+// a window of aggregates only moves 32 chunks further back.
+__device__ __forceinline__ int look_back(const int* flag, int c, int lane) {
+  for (int base = c - 1;;) {
+    const int k = base - lane;
+    const int f = k >= 0 ? load_flag(flag + k) : kAggregate;
+    const unsigned incl = __ballot_sync(0xffffffffu, f == kInclusive);
+    const unsigned empty = __ballot_sync(0xffffffffu, f == kEmpty);
+    if (incl != 0) {
+      const int li = __ffs(incl) - 1;            // the nearest inclusive end
+      if ((empty & ((1u << li) - 1u)) == 0) {
+        __threadfence();
+        return base - li;
+      }
+    } else if (empty == 0) {
+      base -= 32;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) rglru_scan_kernel(Args p) {
+  __shared__ float sa[kChunk][kThreads], sx[kChunk][kThreads];
+  __shared__ int s_ticket, s_stop;
+  const int tid = threadIdx.x;
+  int c = 0, b, wb;
+  if (p.nc > 1) {
+    if (tid == 0) s_ticket = atomicAdd(p.flags, 1);
+    __syncthreads();
+    const int per = p.B * p.nwb;
+    c = s_ticket / per;
+    b = (s_ticket % per) / p.nwb;
+    wb = s_ticket % p.nwb;
+  } else {
+    b = blockIdx.x / p.nwb;
+    wb = blockIdx.x % p.nwb;
+  }
+  const int w = wb * kThreads + tid;
+  const bool ok = w < p.W;
+  const int t0 = c * kChunk, n = min(kChunk, p.T - t0);
+
+  // every step of the chunk in flight at once
+  if (p.v16) {  // a copy moves 4 channels of one step
+    const int w0 = wb * kThreads;
+    const float* ab = p.a + b * p.a_sb + w0 + t0 * p.a_st;
+    const float* xb = p.x + b * p.x_sb + w0 + t0 * p.x_st;
+#pragma unroll 4
+    for (int e = tid; e < n * (kThreads / 4); e += kThreads) {
+      const int u = e / (kThreads / 4), q = 4 * (e % (kThreads / 4));
+      if (w0 + q < p.W) {
+        cp_async16(&sa[u][q], ab + u * p.a_st + q);
+        cp_async16(&sx[u][q], xb + u * p.x_st + q);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+  } else if (ok) {  // a thread reads back only its own copies
+    const float* ab = p.a + b * p.a_sb + w + t0 * p.a_st;
+    const float* xb = p.x + b * p.x_sb + w + t0 * p.x_st;
 #pragma unroll 8
-  for (int k = 0; k < c; ++k)  // the carry into chunk c
-    state = fmaf(prod[sum0 + k * p.W], state, end[sum0 + k * p.W]);
-  const int t0 = c * p.chunk, t1 = min(t0 + p.chunk, p.T);
-  state = run_steps(p.a + b * p.a_sb + w, p.x + b * p.x_sb + w,
-                    h + static_cast<long long>(b) * p.T * p.W + w, p.a_st,
-                    p.x_st, p.W, t0, t1, state, nullptr);
-  if (c == p.nc - 1) sf[static_cast<long long>(b) * p.W + w] = state;
+    for (int u = 0; u < n; ++u) {
+      cp_async4(&sa[u][tid], ab + u * p.a_st);
+      cp_async4(&sx[u][tid], xb + u * p.x_st);
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  }
+
+  float carry = 0.f;
+  if (c == 0 && p.s0 != nullptr && ok)
+    carry = p.s0[static_cast<long long>(b) * p.W + w];
+  const bool last = c == p.nc - 1;
+  const long long plane = static_cast<long long>(p.B) * (p.nc - 1) * p.W;
+  const long long col = static_cast<long long>(b) * (p.nc - 1) * p.W + w;
+  int* flag = p.flags + 1 + (static_cast<long long>(b) * p.nwb + wb) * p.nc;
+  float prod = 1.f, end = 0.f;
+  if (!last && ok) {  // a successor reads this chunk's carries
+#pragma unroll 8
+    for (int u = 0; u < n; ++u) {
+      end = fmaf(sa[u][tid], end, sx[u][tid]);
+      prod *= sa[u][tid];
+    }
+  }
+  if (c > 0) {
+    if (!last) {
+      if (ok) {
+        p.carries[col + c * p.W] = prod;
+        p.carries[plane + col + c * p.W] = end;
+      }
+      publish(flag + c, kAggregate);
+    }
+    if (tid < 32) {
+      const int stop = look_back(flag, c, tid);
+      if (tid == 0) s_stop = stop;
+    }
+    __syncthreads();
+    const int stop = s_stop;
+    if (ok) {  // carry = (a's of chunks stop+1..c-1) applied to stop's end
+      float pa = 1.f, ea = 0.f;
+#pragma unroll 8
+      for (int k = c - 1; k > stop; --k) {  // the loads of 8 steps at once
+        const long long at = col + static_cast<long long>(k) * p.W;
+        ea = fmaf(pa, __ldcg(p.carries + plane + at), ea);
+        pa *= __ldcg(p.carries + at);
+      }
+      carry = fmaf(pa, __ldcg(p.carries + 2 * plane + col +
+                              static_cast<long long>(stop) * p.W), ea);
+    }
+  }
+  if (!last) {
+    if (ok) p.carries[2 * plane + col + c * p.W] = fmaf(prod, carry, end);
+    publish(flag + c, kInclusive);
+  }
+
+  if (ok) {
+    float s = carry;
+    float* hb = p.h + (static_cast<long long>(b) * p.T + t0) * p.W + w;
+#pragma unroll 8
+    for (int u = 0; u < n; ++u) {
+      s = fmaf(sa[u][tid], s, sx[u][tid]);
+      hb[static_cast<long long>(u) * p.W] = s;
+    }
+    if (last) p.sf[static_cast<long long>(b) * p.W + w] = s;
+  }
 }
 
 }  // namespace
 
-// s0 may be null (zero initial state); `summaries` holds 2*B*(nc-1)*W
-// floats, nc = max(1, ceil(T / chunk)), and may be null when nc == 1.
-// Strides are in elements. Returns the cudaError_t of the launches (0 on
-// success).
+// s0 may be null (zero initial state). nc = max(1, ceil(T / chunk)); for
+// nc > 1, `carries` holds 3*B*(nc-1)*W floats and `flags` n_flags =
+// 1 + B*nwb*nc ints, cleared here; both may be null when nc == 1. `chunk`
+// and `threads` are the wrapper's plan and must equal this file's. Strides
+// are in elements; `v16` says that every row of a and x starts on 16 bytes
+// and W % 4 == 0 (16-byte copies). Returns the cudaError_t of the memset or the launch (0
+// on success).
 extern "C" int rglru_scan_fwd(const void* a, const void* x, const void* s0,
-                              void* h, void* sf, void* summaries, int B,
-                              int T, int W, int chunk, long long a_sb,
-                              long long a_st, long long x_sb, long long x_st,
+                              void* h, void* sf, void* carries, void* flags,
+                              int B, int T, int W, int chunk, int threads,
+                              int n_flags, long long a_sb, long long a_st,
+                              long long x_sb, long long x_st, int v16,
                               void* stream) {
-  const int nc = T > chunk ? (T + chunk - 1) / chunk : 1;
-  const Args p{static_cast<const float*>(a), static_cast<const float*>(x),
-               a_sb, a_st, x_sb, x_st, T, W, chunk, nc};
+  if (chunk != kChunk || threads != kThreads) return cudaErrorInvalidValue;
+  const int nc = T > kChunk ? (T + kChunk - 1) / kChunk : 1;
+  const int nwb = (W + kThreads - 1) / kThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int wb = (W + kThreads - 1) / kThreads;
-  float* prod = static_cast<float*>(summaries);
-  float* end = nullptr;
-  if (prod != nullptr) end = prod + static_cast<long long>(B) * (nc - 1) * W;
   if (nc > 1) {
-    if (prod == nullptr) return cudaErrorInvalidValue;
-    chunk_summary_kernel<<<dim3(wb, nc - 1, B), kThreads, 0, st>>>(p, prod,
-                                                                   end);
-    const cudaError_t err = cudaGetLastError();
+    if (carries == nullptr || flags == nullptr || n_flags != 1 + B * nwb * nc)
+      return cudaErrorInvalidValue;
+    const cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * n_flags, st);
     if (err != cudaSuccess) return err;
   }
-  rglru_scan_kernel<<<dim3(wb, nc, B), kThreads, 0, st>>>(
-      p, static_cast<const float*>(s0), prod, end, static_cast<float*>(h),
-      static_cast<float*>(sf));
+  const Args p{static_cast<const float*>(a), static_cast<const float*>(x),
+               static_cast<const float*>(s0), static_cast<float*>(h),
+               static_cast<float*>(sf), static_cast<float*>(carries),
+               static_cast<int*>(flags), a_sb, a_st, x_sb, x_st, B, T, W, nc,
+               nwb, v16};
+  rglru_scan_kernel<<<nc * B * nwb, kThreads, 0, st>>>(p);
   return cudaGetLastError();
 }

@@ -16,15 +16,17 @@ from .ssd_scan import ssd_chunked
 __all__ = ["attention", "decode_attention", "ssd", "rglru"]
 
 
-def ssd(x, B, C, dt, A, D, init_state=None):
+def ssd(x, B, C, dt, A, D, init_state=None, out_state=None):
     """Mamba2 SSD. x: [Bz,T,H,hd]; B/C: [Bz,T,N]; dt: [Bz,T,H]; A/D: [H].
-    Returns (y [Bz,T,H,hd], final_state [Bz,H,hd,N]), float32.
+    Returns (y [Bz,T,H,hd], final_state [Bz,H,hd,N]), float32; the final
+    state goes into ``out_state`` when given (it may be ``init_state``).
 
     On the CPU this is the JAX package's dispatch without Pallas: the
     chunked dual form above 16 steps, the sequential recurrence otherwise.
     """
     if x.device.type == "cpu":
-        if x.shape[1] > 16:
-            return ssd_dual(x, B, C, dt, A, D, init_state=init_state)
-        return ssd_ref(x, B, C, dt, A, D, init_state=init_state)
-    return ssd_chunked(x, B, C, dt, A, D, init_state=init_state)
+        ref = ssd_dual if x.shape[1] > 16 else ssd_ref
+        y, s = ref(x, B, C, dt, A, D, init_state=init_state)
+        return y, (s if out_state is None else out_state.copy_(s))
+    return ssd_chunked(x, B, C, dt, A, D, init_state=init_state,
+                       out_state=out_state)

@@ -1,12 +1,15 @@
 """RG-LRU linear recurrence: the Hopper kernel ``csrc/rglru_scan.cu``, its
-plain PyTorch version, the wrapper and the kernel's cost count.
+plain PyTorch version, the wrapper, its launch plan and the kernel's cost
+count.
 
 Replaces the TPU kernel ``repro/kernels/rglru.py::rglru_scan`` (Pallas).
 The TPU kernel solves each time chunk with an associative scan across its
-vector lanes; on the H100 the recurrence is bound by bytes (one multiply-add
-per element read), so the kernel runs it directly, one thread per channel
-and time chunk of ``CHUNK`` steps with the state in a register; a longer T
-takes two passes, chunk summaries and then the carry (the reasons and the
+vector lanes and carries the state from chunk to chunk in order; on the
+H100 the recurrence is bound by bytes (one multiply-add per element read),
+so the kernel runs it directly, one thread per channel and time chunk of
+``CHUNK`` steps with the steps in registers, every chunk at once in one
+pass: each chunk's carry comes from its predecessors by a decoupled
+look-back over flags that the call clears first (the reasons and the
 layout are in the source).
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
@@ -15,17 +18,20 @@ raises. ``rglru_scan.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 from .ref import rglru_ref
 
-__all__ = ["rglru_scan", "rglru_scan_plain", "rglru_cost", "CHUNK"]
+__all__ = ["rglru_scan", "rglru_scan_plain", "rglru_cost", "rglru_plan",
+           "RglruPlan", "CHUNK", "THREADS"]
 
 #: time steps per thread; a longer T is cut into chunks of this many
 CHUNK = 64
+#: channels per block, one a thread
+THREADS = 64
 
 #: the plain PyTorch version of the kernel: the sequential recurrence
 rglru_scan_plain = rglru_ref
@@ -40,12 +46,30 @@ def rglru_cost(B: int, T: int, W: int, with_init: bool
     return flops, 4.0 * (3 * B * T * W + (2 if with_init else 1) * B * W)
 
 
+class RglruPlan(NamedTuple):
+    """One launch of ``csrc/rglru_scan.cu``, as the kernel sees it."""
+    chunks: int         # nc = max(1, ceil(T / CHUNK)) time chunks
+    channel_blocks: int  # nwb = ceil(W / THREADS)
+    grid: int           # blocks: nc * B * nwb
+    flags: int          # int32 flags, the ticket first (0 for one chunk)
+    carries: int        # float32 carries [3, B, nc-1, W] (0 for one chunk)
+
+
+def rglru_plan(B: int, T: int, W: int) -> RglruPlan:
+    nc = max(1, -(-T // CHUNK))
+    nwb = -(-W // THREADS)
+    many = nc > 1
+    return RglruPlan(nc, nwb, nc * B * nwb,
+                     1 + B * nwb * nc if many else 0,
+                     3 * B * (nc - 1) * W if many else 0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 6 + [I] * 4 + [L] * 4 + [P]
+        fn.argtypes = [P] * 7 + [I] * 6 + [L] * 4 + [I, P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -85,17 +109,23 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     sf = torch.empty((B, W), dtype=torch.float32, device=a.device)
     if sf.numel() == 0:
         return h, sf
-    # per chunk but the last: the product of its a and its end state
-    nc = -(-T // CHUNK)
-    summaries = (torch.empty((2, B, nc - 1, W), dtype=torch.float32,
-                             device=a.device) if nc > 1 else None)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    plan = rglru_plan(B, T, W)
+    dev = a.device
+    carries = (torch.empty(plan.carries, dtype=torch.float32, device=dev)
+               if plan.carries else None)
+    flags = (torch.empty(plan.flags, dtype=torch.int32, device=dev)
+             if plan.flags else None)
+    v16 = W % 4 == 0 and all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0
+                             and t.stride(1) % 4 == 0 for t in (a, x))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().rglru_scan_fwd(
         a.data_ptr(), x.data_ptr(),
         None if init_state is None else init_state.data_ptr(),
         h.data_ptr(), sf.data_ptr(),
-        None if summaries is None else summaries.data_ptr(), B, T, W, CHUNK,
-        a.stride(0), a.stride(1), x.stride(0), x.stride(1), stream)
+        None if carries is None else carries.data_ptr(),
+        None if flags is None else flags.data_ptr(), B, T, W, CHUNK, THREADS,
+        plan.flags, a.stride(0), a.stride(1), x.stride(0), x.stride(1),
+        int(v16), stream)
     if err:
         raise RuntimeError(f"rglru_scan kernel launch failed: cudaError {err}")
     rglru_scan.launches += 1

@@ -256,14 +256,15 @@ def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     Cc = conv_out[..., d_in + N:]
     A = -torch.exp(p.A_log)
     dt_s = F.softplus(dt.float() + p.dt_bias)
+    # decode writes the new state over the cache's (in place, no copy)
     y, state = kops.ssd(xh, Bc, Cc, dt_s, A, p.D,
-                        init_state=None if cache is None else cache["state"])
+                        init_state=None if cache is None else cache["state"],
+                        out_state=cache["state"] if mode == "decode" else None)
     y = y.reshape(B, T, d_in).to(x.dtype)
     y = rmsnorm(p.norm.g, y * F.silu(z))
     out = p.w_out(y)
     if mode == "decode":
         cache["conv"].copy_(new_conv)
-        cache["state"].copy_(state)
         return out, cache
     return out, {"conv": new_conv, "state": state}
 

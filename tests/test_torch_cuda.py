@@ -12,8 +12,10 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
-from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_chunked_plain
+from repro_torch.kernels.ssd_scan import (STATE_DIMS, ssd_chunked,
+                                          ssd_chunked_plain, ssd_plan)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -265,6 +267,88 @@ def test_ssd_kernel_matches_plain_on_card(Bz, T, with_init):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", STATE_DIMS)
+@pytest.mark.parametrize("Bz", [1, 2, 8])
+@pytest.mark.parametrize("T", [1, 16, 17, 32, 33, 100, 256, 288, 2048])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_kernel_both_paths_at_the_threshold_on_card(N, Bz, T, with_init):
+    """Either side of the recurrence / dual-form threshold, a ragged last
+    chunk and a long T, every state size, batched: the path ``ssd_plan``
+    picks by T."""
+    dev = _card()
+    args = _ssd_inputs(dev, Bz, T, H=4, hd=64, N=N, with_init=with_init,
+                       seed=T + N)
+    got = ssd_chunked(*args)
+    want = ssd_chunked_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _forced(path, args):
+    """``ssd_chunked`` on the kernel of ``path`` whatever T is (the
+    arguments are contiguous and aligned, as the wrapper would pass them)."""
+    x, B, C, dt, A, D, s0 = args
+    Bz, T, H, hd = x.shape
+    y = torch.empty_like(x)
+    sf = torch.empty((Bz, H, hd, B.shape[-1]), device=x.device)
+    plan = ssd_plan(Bz, T, H, hd, B.shape[-1], path=path)
+    return y, ssd_scan._launch(plan, x, B, C, dt, A, D, s0, y, sf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dual", "recurrence"])
+@pytest.mark.parametrize("T,hd", [(1, 64), (16, 64), (17, 48), (32, 128),
+                                  (33, 64), (100, 64)])
+def test_ssd_both_kernels_at_every_short_T_on_card(path, T, hd):
+    """Each kernel is right on its own at the T where the threshold could
+    sit, with a ragged head dim (a partial tile of state rows)."""
+    dev = _card()
+    args = _ssd_inputs(dev, 2, T, H=3, hd=hd, N=128, seed=T)
+    got = _forced(path, args)
+    want = ssd_chunked_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 100])
+def test_ssd_kernel_takes_unaligned_views_on_card(T):
+    """x, B and C as views that start off 16 bytes, as slices of a wider
+    row: B and C get aligned copies, x is staged by plain copies."""
+    dev = _card()
+    x, B, C, dt, A, D, s0 = _ssd_inputs(dev, 2, T, H=3, hd=64, seed=5)
+    wide = torch.zeros(2, T, 1 + 3 * 64 + 2 * 128, device=dev)
+    wide[..., 1:1 + 3 * 64] = x.reshape(2, T, 3 * 64)
+    wide[..., 1 + 3 * 64:1 + 3 * 64 + 128] = B
+    wide[..., 1 + 3 * 64 + 128:] = C
+    xv = wide[..., 1:1 + 3 * 64].unflatten(-1, (3, 64))
+    Bv = wide[..., 1 + 3 * 64:1 + 3 * 64 + 128]
+    Cv = wide[..., 1 + 3 * 64 + 128:]
+    got = ssd_chunked(xv, Bv, Cv, dt, A, D, s0)
+    want = ssd_chunked_plain(x, B, C, dt, A, D, s0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz,T", [(8, 1), (1, 100)])
+def test_ssd_in_place_state_equals_out_of_place_on_card(Bz, T):
+    """``out_state`` aliasing ``init_state`` (decode's in-place update) gives
+    what a separate output gives, on both paths."""
+    dev = _card()
+    args = _ssd_inputs(dev, Bz, T, seed=3)
+    y, s = ssd_chunked(*args)
+    cache = args[6].clone()
+    y2, s2 = ssd_chunked(*args[:6], cache, out_state=cache)
+    torch.cuda.synchronize()
+    assert s2 is cache
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+
+
+@pytest.mark.cuda
 def test_ssd_kernel_state_chains_on_card():
     dev = _card()
     x, B, C, dt, A, D, _ = _ssd_inputs(dev, 1, 256, with_init=False, seed=1)
@@ -289,11 +373,13 @@ def _rglru_inputs(dev, B, T, W, with_init, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,W,with_init", [
     (1, 2112, 4096, False), (1, 32, 4096, True), (8, 1, 4096, True),
-    (3, 33, 100, True), (1, 64, 4096, True), (2, 130, 100, True)])
+    (3, 33, 100, True), (1, 64, 4096, True), (2, 130, 100, True),
+    (2, 130, 99, True)])
 def test_rglru_kernel_matches_plain_on_card(B, T, W, with_init):
     """recurrentgemma-9b's shapes (W = 4096): a prefill (two passes over
     64-step chunks), a suffix over a state, a decode step of 8 sequences;
-    a ragged width; exactly one chunk; three chunks, the last ragged."""
+    a ragged width; exactly one chunk; three chunks, the last ragged, also
+    with a width of rows that are not on 16 bytes (4-byte copies)."""
     dev = _card()
     args = _rglru_inputs(dev, B, T, W, with_init, seed=T)
     got = rglru_scan(*args)
@@ -315,3 +401,35 @@ def test_rglru_kernel_state_chains_on_card():
     torch.testing.assert_close(torch.cat([h1, h2], 1), h, atol=1e-4,
                                rtol=1e-4)
     torch.testing.assert_close(s2, s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 32, 64, 65, 2112, 4103])
+def test_rglru_one_pass_repeats_and_replays_on_card(T):
+    """One pass with a look-back over flags: three calls in a row, then
+    three replays of one CUDA graph of the call (its memset clears the
+    flags each time; the outputs are poisoned before each replay), each
+    equal to the plain version. B = 3 and a ragged W."""
+    dev = _card()
+    args = _rglru_inputs(dev, 3, T, 1000, True, seed=T)
+    want = rglru_scan_plain(*args)
+    for _ in range(3):
+        got = rglru_scan(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rglru_scan(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rglru_scan(*args)
+    for _ in range(3):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -34,7 +34,8 @@ from repro.simcluster.hw import A100 as JA100
 from repro_torch.configs import ARCHS, SMOKES
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.rglru import rglru_cost, rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rglru import (CHUNK, THREADS, rglru_cost, rglru_plan,
+                                       rglru_scan, rglru_scan_plain)
 from repro_torch.launch.serve import run
 from repro_torch.models import build_model, from_jax_params
 from repro_torch.serving import (DecodeBatch, DisaggConfig, DisaggServer,
@@ -133,6 +134,83 @@ def test_rglru_cost_at_the_serve_shapes():
     assert nbytes == 4 * (3 * 2112 * 4096 + 4096)           # ~104 MB
     _, dec = rglru_cost(8, 1, 4096, True)
     assert dec == 4 * (3 * 8 * 4096 + 2 * 8 * 4096)
+
+
+@pytest.mark.parametrize("B,T,W,want", [
+    (1, 2112, 4096, (33, 64, 2112, 2113, 3 * 32 * 4096)),   # full prefill
+    (1, 32, 4096, (1, 64, 64, 0, 0)),                       # suffix
+    (8, 1, 4096, (1, 64, 512, 0, 0)),                       # decode
+    (3, 64, 1000, (1, 16, 48, 0, 0)),                       # one chunk
+    (3, 65, 1000, (2, 16, 96, 97, 3 * 3 * 1000)),
+    (3, 4103, 1000, (65, 16, 3120, 3121, 3 * 3 * 64 * 1000)),
+    (2, 0, 100, (1, 2, 4, 0, 0))])
+def test_rglru_plan_one_pass(B, T, W, want):
+    """The launch ``rglru_scan`` makes, as Python ints: chunks of CHUNK
+    steps, blocks of THREADS channels, one block each (chunk, sequence,
+    channel block), and for more than one chunk the flags (the ticket
+    first, one a (sequence, channel block, chunk)) and the carries (prod
+    a, end, inclusive end) of every chunk but the last."""
+    assert (CHUNK, THREADS) == (64, 64)
+    plan = rglru_plan(B, T, W)
+    assert tuple(plan) == want
+    assert plan.grid == plan.chunks * B * plan.channel_blocks
+
+
+def _look_back_scan(a, x, s0, order, chunk=4):
+    """The one-pass kernel's arithmetic on the CPU, chunk by chunk in the
+    ``order`` their blocks resolve: each chunk's (prod a, end from zero),
+    then its carry by walking back over its predecessors, composing an
+    aggregate where that chunk has no inclusive end yet and stopping at
+    the first that has one; then the rescan from the carry."""
+    B, T, W = a.shape
+    nc = -(-T // chunk)
+    prod, end, incl = {}, {}, {}
+    h = torch.empty(B, T, W)
+    for c in range(nc):
+        ac, xc = a[:, c * chunk:(c + 1) * chunk], x[:, c * chunk:(c + 1) * chunk]
+        p, e = torch.ones(B, W), torch.zeros(B, W)
+        for u in range(ac.shape[1]):
+            e = ac[:, u] * e + xc[:, u]
+            p = p * ac[:, u]
+        prod[c], end[c] = p, e
+    for c in order:
+        carry = s0.clone()
+        if c > 0:
+            pa, ea = torch.ones(B, W), torch.zeros(B, W)
+            for k in range(c - 1, -1, -1):
+                if k in incl:
+                    carry = pa * incl[k] + ea
+                    break
+                ea = pa * end[k] + ea
+                pa = pa * prod[k]
+            else:
+                carry = pa * s0 + ea
+        incl[c] = prod[c] * carry + end[c]
+        s = carry
+        for u in range(c * chunk, min(T, (c + 1) * chunk)):
+            s = a[:, u] * s + x[:, u]
+            h[:, u] = s
+    return h, incl[nc - 1]
+
+
+@pytest.mark.parametrize("order", ["in order", "reversed", "shuffled"])
+def test_rglru_look_back_composition_equals_the_recurrence(order):
+    """Whatever predecessors have resolved when a chunk looks back, its
+    carry composed from their aggregates and the first inclusive end equals
+    the sequential state (the plain version's and the Pallas kernel's)."""
+    arrs = _rglru_inputs(2, 37, 24, True, seed=8)
+    a, x, s0 = _t(arrs)
+    nc = -(-37 // 4)
+    resolve = {"in order": list(range(nc)),
+               "reversed": list(range(nc))[::-1],
+               "shuffled": list(np.random.default_rng(0).permutation(nc))}
+    h, s = _look_back_scan(a, x, s0, [int(c) for c in resolve[order]])
+    want = tref.rglru_ref(a, x, s0)
+    jh, js = jrglru_scan(*_j(arrs[:2]), init_state=jnp.asarray(arrs[2]),
+                         interpret=True)
+    for got, w, jw in ((h, want[0], jh), (s, want[1], js)):
+        _close(got, w, KTOL)
+        _close(got, jw, KTOL)
 
 
 # -------------------------------------------------------------------- model

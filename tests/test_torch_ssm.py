@@ -32,8 +32,9 @@ from repro.simcluster.hw import A100 as JA100
 from repro_torch.configs import ARCHS, SMOKES
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import (_rows16, ssd_chunked,
-                                          ssd_chunked_plain, ssd_cost)
+from repro_torch.kernels.ssd_scan import (SSD_REC_MAX_T, _rows16,
+                                          ssd_chunked, ssd_chunked_plain,
+                                          ssd_cost, ssd_plan)
 from repro_torch.launch.serve import agent_requests, run
 from repro_torch.models import build_model, from_jax_params
 from repro_torch.serving import (DecodeBatch, DisaggConfig, DisaggServer,
@@ -155,6 +156,118 @@ def test_ssd_cost_at_the_serve_shapes():
     assert 10.5e6 < nbytes < 11e6
     _, dec = ssd_cost(8, 1, 64, 64, 128)
     assert 2 * 8 * 64 * 64 * 128 * 4 < dec < 34e6           # state in + out
+
+
+@pytest.mark.parametrize("Bz,T,H,hd,N,want", [
+    # mamba2-1.3b: prefill, fresh prompt, either side of the threshold
+    # (the suffix is 32 steps), decode
+    (1, 256, 64, 64, 128, ("dual", 64, 32, 640, 128, 208896, 4 * 64 * 64)),
+    (1, 288, 64, 64, 128, ("dual", 64, 32, 640, 128, 208896, 5 * 64 * 64)),
+    (1, 33, 64, 64, 128, ("dual", 64, 32, 640, 128, 208896, 64 * 64)),
+    (1, 32, 64, 64, 128, ("recurrence", 16, 16, 128, 256, 43200, 0)),
+    (1, 16, 64, 64, 128, ("recurrence", 16, 16, 128, 256, 43200, 0)),
+    (8, 1, 64, 64, 128, ("recurrence", 16, 16, 128, 2048, 43200, 0)),
+    # a ragged head dim (a partial tile of state rows), small N
+    (2, 100, 4, 48, 16, ("dual", 64, 32, 640, 16, 79872, 2 * 2 * 64 * 64)),
+    (2, 5, 4, 48, 16, ("recurrence", 16, 32, 128, 16, 16576, 0))])
+def test_ssd_plan_picks_the_kernel_by_T(Bz, T, H, hd, N, want):
+    """The launch ``ssd_chunked`` makes, as Python ints: the dual form above
+    SSD_REC_MAX_T = 32 steps, the recurrence at or below; the grid covers every
+    (sequence, head, tile of state rows); the shared bytes are what the
+    kernel's ``Smem<N>`` holds (the kernel refuses any other count); the
+    dual form's G = C B^T is made once per sequence and 64-step chunk."""
+    plan = ssd_plan(Bz, T, H, hd, N)
+    assert SSD_REC_MAX_T == 32
+    assert tuple(plan) == want
+    assert plan.grid == Bz * H * -(-hd // plan.rows)
+    # one dual block an SM at N = 128 (128 blocks on 132 SMs), within the
+    # 227 KB a block may have
+    assert 232448 // 2 < ssd_plan(1, 256, 64, 64, 128).smem <= 232448
+    assert all(ssd_plan(1, T, 1, 64, n, path=p).smem <= 232448
+               for n in (16, 32, 64, 128) for p in ("dual", "recurrence"))
+    with pytest.raises(ValueError):
+        ssd_plan(1, T, 1, 64, 128, path="chunked")
+
+
+def _tf32(t, rounded=True):
+    """float32 to TF32 (10 mantissa bits): rounded to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` converts, or cut, as the tensor
+    cores read the top 19 bits of an operand."""
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0x1000 if rounded else b) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, splits):
+    """``a @ b`` as the tensor cores take it, float32 accumulation: one
+    product of operands converted to TF32, or the kernel's 3xTF32 (hi = v
+    cut to TF32, lo = v - hi, read cut; lo*hi' + hi*lo' + hi*hi')."""
+    if splits == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a, False), _tf32(b, False)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _dual_tf32(x, B, C, dt, A, D, s0, splits, Q=64):
+    """The CUDA dual-form kernel's arithmetic on the CPU: chunks of Q
+    steps, its four products through ``_tf32_mm``, the decay and the
+    cumsum in float32."""
+    Bz, T, H, hd = x.shape
+    y = torch.empty(Bz, T, H, hd)
+    s = s0.clone()                                       # [Bz, H, hd, N]
+    for b in range(Bz):
+        for t0 in range(0, T, Q):
+            n = min(Q, T - t0)
+            Bc, Cc = B[b, t0:t0 + n], C[b, t0:t0 + n]      # [n, N]
+            xc = x[b, t0:t0 + n].transpose(0, 1)          # [H, n, hd]
+            d = dt[b, t0:t0 + n].T                         # [H, n]
+            cs = torch.cumsum(d * A[:, None], 1)           # [H, n]
+            mask = torch.ones(n, n, dtype=torch.bool).tril()
+            L = torch.exp((cs[:, :, None] - cs[:, None, :])
+                          .masked_fill(~mask, -1e30)) * d[:, None, :]
+            G = _tf32_mm(Cc, Bc.T, splits)                 # [n, n]
+            yc = (torch.exp(cs)[..., None]
+                  * _tf32_mm(Cc, s[b].transpose(1, 2), splits)
+                  + _tf32_mm(G * L, xc, splits) + D[:, None, None] * xc)
+            y[b, t0:t0 + n] = yc.transpose(0, 1)
+            w = torch.exp(cs[:, -1:] - cs) * d             # [H, n]
+            s[b] = (torch.exp(cs[:, -1])[:, None, None] * s[b]
+                    + _tf32_mm((xc * w[..., None]).transpose(1, 2), Bc,
+                               splits))
+    return y, s
+
+
+def test_3xtf32_dual_form_holds_1e4_where_tf32_misses():
+    """The numerical premise of the tensor-core SSD kernel, at mamba2's
+    widths: the dual form with every product in 3xTF32 stays within the
+    kernel's 1e-4 of the recurrence (the port's and the JAX package's),
+    the same form with one TF32 product misses it."""
+    arrs = _ssd_inputs(1, 256, 64, 64, 128, True, seed=11)
+    targs = _t(arrs)
+    want = tref.ssd_ref(*targs)
+    jwant = jref.ssd_ref(*_j(arrs[:6]), init_state=jnp.asarray(arrs[6]))
+    got3 = _dual_tf32(*targs, splits=3)
+    got1 = _dual_tf32(*targs, splits=1)
+    for g3, g1, w, jw in zip(got3, got1, want, jwant):
+        _close(g3, w, KTOL)
+        _close(g3, jw, KTOL)
+        with pytest.raises(AssertionError):
+            _close(g1, w, KTOL)
+
+
+def test_ssd_chunked_writes_out_state_in_place_on_the_cpu():
+    """``out_state`` may be ``init_state`` itself (decode's in-place update):
+    the plain path reads it whole before the state is written back."""
+    x, B, C, dt, A, D, s0 = _t(_ssd_inputs(2, 1, 2, 32, 16, True, seed=3))
+    y, s = ssd_chunked(x, B, C, dt, A, D, s0)
+    cache = s0.clone()
+    y2, s2 = ssd_chunked(x, B, C, dt, A, D, cache, out_state=cache)
+    assert s2 is cache
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+    out = torch.empty_like(s0)
+    y3, s3 = tops.ssd(x, B, C, dt, A, D, s0, out_state=out)
+    assert s3 is out and torch.equal(s3, tref.ssd_ref(x, B, C, dt, A, D,
+                                                       s0)[1])
 
 
 # -------------------------------------------------------------------- model
