@@ -16,8 +16,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
      3.35 TB/s, counting the stored KV heads; the SSD dual form counts its
      products three times, 3xTF32, at the TF32 tensor-core peak). The
      attention kernels take the stored KV heads and the query-head ->
-     KV-head map: 16 heads over 16, smollm's 16 over 5, recurrentgemma's
-     16 over 1.
+     KV-head map: 16 heads over 16 (deepseek-moe-16b's MHA at head dim
+     128 among them), smollm's 16 over 5, recurrentgemma's 16 over 1.
      Times are device times: ``REPS`` calls captured in one CUDA graph and
      replayed, so the host's launch cost is left out; the eager time per
      call (host included) is printed beside;
@@ -27,16 +27,21 @@ Phases, in order; any failure exits non-zero before a result is printed:
      resume snapshots (the SSD scan), then full-width recurrentgemma-9b
      on an agent stream of ~2.1k-token prompts past its 2048 window (the
      RG-LRU scan and both attention kernels at head dim 256 with the
-     window); each path's launch counters are zeroed just before its run
+     window), then full-width full-depth deepseek-moe-16b on 3a's stream
+     (routed and shared experts beside both attention kernels at head dim
+     128); each path's launch counters are zeroed just before its run
      and read just after; 3a prints the device time of ``index_select``
      (no K/V expansion is left, only the embedding lookup), 3b that of
      each SSD path (dual form, recurrence) and of the copies left, 3c the
-     share of device time of each attention kernel and of ``rglru_scan``;
+     share of device time of each attention kernel and of ``rglru_scan``,
+     3d the share of the GEMMs, the sort, the index kernels, each attention
+     kernel and the MoE paths, the host synchronisations of a prefill and
+     the decode-time weight gather alone;
   4. whole model — each model in float32 through the kernels on the card
      and through the plain versions on the CPU: prefill of a prompt (256
-     tokens; 2112 for recurrentgemma-9b, cut to depth 5) and 4 decode steps
-     on the caches admitted as ``DecodeBatch.add`` admits them, logits
-     compared.
+     tokens; 2112 for recurrentgemma-9b, cut to depth 5; deepseek-moe-16b
+     cut to depth 4) and 4 decode steps on the caches admitted as
+     ``DecodeBatch.add`` admits them, logits compared.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -406,7 +411,7 @@ def phase_kernels():
             main["flash_attention"] = r
         flash_case("suffix T=128 S=640 q_offset=512", dtype, 128, 640, 64,
                    q_offset=512)
-        for D in (32, 96, 128):
+        for D in (32, 96):
             flash_case(f"D={D} T=S=256", dtype, 256, 256, D)
         flash_case("window=128 T=S=512", dtype, 512, 512, 64, window=128)
         flash_case("non-causal T=200 S=300", dtype, 200, 300, 64,
@@ -426,6 +431,13 @@ def phase_kernels():
                    dtype, 32, 2080, 256, q_offset=2048, window=2048,
                    kv_heads=1)
         decode_case(dtype, D=256, S=2048, kv_heads=1)
+        # deepseek-moe-16b's attention: 16 query heads over 16 KV heads
+        # (MHA), head dim 128; a 256-token prompt, the suffix over a reused
+        # 32-token prefix, and the decode step at 8 slots
+        flash_case("deepseek-moe-16b D=128 T=S=256 MHA", dtype, 256, 256, 128)
+        flash_case("deepseek-moe-16b suffix D=128 T=224 S=256 q_offset=32 "
+                   "MHA", dtype, 224, 256, 128, q_offset=32)
+        decode_case(dtype, D=128)
     # mamba2-1.3b's serve shapes (H=64, hd=64, N=128), float32 as the model
     # feeds the scan (the conv output is float32)
     main["ssd_chunked"] = ssd_case("prefill Bz=1 T=256", 1, 256,
@@ -531,23 +543,42 @@ def serve_counted(model, reqs, kernels, capacity=1024, shapes=None):
     return launches, res, steps
 
 
-def serve_profiled(model, reqs, capacity=1024):
+def serve_profiled(model, reqs, capacity=1024, spans=None):
     """Run 2 (warm) and run 3 (warm, under ``torch.profiler``): device busy
-    time, the idle share and the top kernels by device time."""
+    time, the idle share and the top kernels by device time. ``spans`` maps
+    a label to (module, function name): in run 3 each such function runs
+    inside a ``record_function`` range of that label, and the device time
+    of the kernels launched in it is printed."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    spans = spans or {}
     log("  run 2 (warm):")
     _, _, warm = serve_once(model, reqs, capacity)
     log("  run 3 (warm, under torch.profiler):")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, traced = serve_once(model, reqs, capacity)
+    inner = {label: getattr(mod, fn) for label, (mod, fn) in spans.items()}
+
+    def spanned(label):
+        def run(*a, **kw):
+            with record_function(label):
+                return inner[label](*a, **kw)
+        return run
+    for label, (mod, fn) in spans.items():
+        setattr(mod, fn, spanned(label))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, traced = serve_once(model, reqs, capacity)
+    finally:
+        for label, (mod, fn) in spans.items():
+            setattr(mod, fn, inner[label])
     # device-side events only (kernels, copies); the operator rows above
-    # them would count the same device time twice
-    rows = [e for e in prof.key_averages()
+    # them would count the same device time twice, and so would the
+    # device-side rows of the spans
+    averages = prof.key_averages()
+    rows = [e for e in averages
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in spans]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     # the same requests do the same device work in every run; the profiler
     # slows the host, so the idle share is taken against run 2's wall time
@@ -558,15 +589,29 @@ def serve_profiled(model, reqs, capacity=1024):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
             f"{e.count:6d} calls  {e.key[:90]}")
+    for e in averages:
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            ms = e.device_time_total / 1e3
+            log(f"  span {e.key}: {e.count} calls, device time of its "
+                f"kernels {ms:.2f} ms, {ms / 1e3 / busy:.3f} of device busy "
+                f"time")
     return rows, busy
 
 
-def device_share(rows, busy, word):
-    """Device ms, calls and share of busy time of the kernels whose name
-    holds ``word`` (case and underscores ignored)."""
-    hit = [e for e in rows if word in e.key.lower().replace("_", "")]
-    ms = sum(e.self_device_time_total for e in hit) / 1e3
-    return ms, sum(e.count for e in hit), ms / 1e3 / busy
+def device_shares(rows, busy, groups):
+    """Each kernel row goes to the first of ``groups`` (label, words) one of
+    whose words its name holds (case and underscores ignored); prints the
+    device ms, calls and share of busy time of each group and of the rest."""
+    acc = {label: [0.0, 0] for label, _ in groups + [("the rest", ())]}
+    for e in rows:
+        name = e.key.lower().replace("_", "")
+        label = next((lb for lb, words in groups
+                      if any(w in name for w in words)), "the rest")
+        acc[label][0] += e.self_device_time_total / 1e3
+        acc[label][1] += e.count
+    for label, (ms, n) in acc.items():
+        log(f"  {label}: {ms:.2f} ms over {n} calls, {ms / 1e3 / busy:.3f} "
+            f"of device busy time")
 
 
 def _model(cfg, dtype):
@@ -598,9 +643,9 @@ def phase_serve_smollm():
     rows, busy = serve_profiled(model, reqs)
     # the kernels read the 5 stored KV heads through the map: no expansion
     # copy of K/V (index_select) is left on the path
-    ms, n, share = device_share(rows, busy, "indexselect")
-    log(f"  index_select kernels (the embedding lookup's among them): "
-        f"{ms:.2f} ms over {n} calls, {share:.3f} of device busy time")
+    device_shares(rows, busy, [(
+        "index_select kernels (the embedding lookup's among them)",
+        ("indexselect",))])
     return launches
 
 
@@ -626,14 +671,11 @@ def phase_serve_mamba2():
     # the suffixes and the decode steps), and the copies left: decode
     # writes its state in place, so no per-step memcpy of the [8, 64, 64,
     # 128] state remains
-    for word, what in (("gramkernel", "ssd dual form, G = C B^T"),
-                       ("dualkernel", "ssd dual form, the rest"),
-                       ("reckernel", "ssd recurrence"),
-                       ("memcpy", "memcpys"),
-                       ("directcopy", "copy kernels")):
-        ms, n, share = device_share(rows, busy, word)
-        log(f"  {what}: {ms:.2f} ms over {n} calls, {share:.3f} of device "
-            f"busy time")
+    device_shares(rows, busy, [("ssd dual form, G = C B^T", ("gramkernel",)),
+                               ("ssd dual form, the rest", ("dualkernel",)),
+                               ("ssd recurrence", ("reckernel",)),
+                               ("memcpys", ("memcpy",)),
+                               ("copy kernels", ("directcopy",))])
     return launches
 
 
@@ -663,11 +705,115 @@ def phase_serve_hybrid():
     assert launches["flash_attention"] >= n_attn * len(reqs), launches
     assert launches["decode_attention"] >= n_attn * steps, launches
     rows, busy = serve_profiled(model, reqs, capacity=4096)
-    for word in ("flashmmakernel", "decodekernel", "combinekernel",
-                 "rglruscankernel", "memset"):
-        ms, n, share = device_share(rows, busy, word)
-        log(f"  {word}: {ms:.2f} ms over {n} calls, {share:.3f} of device "
-            f"busy time")
+    device_shares(rows, busy, [(w, (w,)) for w in (
+        "flashmmakernel", "decodekernel", "combinekernel", "rglruscankernel",
+        "memset")])
+    return launches
+
+
+def prefill_syncs(model, tokens):
+    """The host synchronisations of one prefill, counted by PyTorch's sync
+    debug mode (one warning each)."""
+    import warnings
+
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(model)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.prefill(tokens)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    n = sum(sites.values())
+    moe_layers = sum(s.count for s in model.segments if s.kinds[0][1])
+    log(f"  host synchronisations in one prefill of {len(tokens)} tokens: "
+        f"{n} ({moe_layers} MoE layers); by the line that made them: "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(sites.items()))
+        if n else "  host synchronisations in one prefill: not measured "
+        "(the sync debug mode gave no warning)")
+
+
+def moe_decode_cost(model, slots=8):
+    """One MoE layer at the decode step's shape (``slots`` tokens): the
+    token-gather path (``_moe_token_gather``, what decode runs) and its
+    weight gather alone, by graph replay; the grouped path on the same
+    tokens eagerly (it reads its largest group on the host, so no graph
+    holds it), and the two paths' agreement."""
+    from repro_torch.models import blocks
+    p, cfg = model.seg1[0][0].ffn_moe, model.cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(slots, 1, cfg.d_model, generator=g,
+                    device="cuda").to(model.dtype)
+    _, idx = blocks._route(x.reshape(slots, -1), p.router, cfg.top_k)
+    check(f"moe[{slots} decode tokens] grouped vs token gather",
+          blocks._moe_local(p, x, cfg), blocks._moe_token_gather(p, x, cfg),
+          TOL[model.dtype])
+    expert = 3 * cfg.d_model * cfg.d_expert * p.w_in.element_size()
+    distinct = int(idx.unique().numel())
+    gathered = idx.numel() * expert
+    ms_gather = graph_ms(lambda: (p.w_in[idx], p.w_gate[idx], p.w_out[idx]))
+    ms_path = graph_ms(lambda: blocks._moe_token_gather(p, x, cfg))
+    ms_grouped = time_ms(lambda: blocks._moe_local(p, x, cfg))
+    log(f"  one MoE layer, {slots} decode tokens x top-{cfg.top_k} over "
+        f"{distinct} distinct experts: weight gather {ms_gather:.4f} ms "
+        f"({gathered / 1e6:.1f} MB gathered: read and written, "
+        f"{2 * gathered / ms_gather / 1e9:.3f} TB/s), token-gather path "
+        f"{ms_path:.4f} ms (bound {3 * gathered / HBM_BW * 1e3:.4f} ms for "
+        f"its 3 passes), grouped path {ms_grouped:.4f} ms eager, host "
+        f"included (it reads all {cfg.n_experts} experts' weights once: "
+        f"{cfg.n_experts * expert / HBM_BW * 1e3:.4f} ms at the HBM rate; "
+        f"the {distinct} experts routed to need "
+        f"{distinct * expert / HBM_BW * 1e3:.4f} ms)")
+
+
+def phase_serve_moe():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import blocks
+
+    log("[3d] serve-deepseek-moe-16b: full-width full-depth deepseek-moe-16b "
+        "(bf16, seed 0) behind DisaggServer(mfs), 2 prefill units, 8 decode "
+        "slots x 1024; 3a's stream: 16 requests, half on 4 Zipf-hot "
+        "32-token prefixes")
+    torch.cuda.reset_peak_memory_stats()
+    model = _model(_arch("deepseek-moe-16b"), torch.bfloat16)
+    cfg = model.cfg
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    plan = [(s.count, "moe" if s.kinds[0][1] else "dense")
+            for s in model.segments]
+    log(f"  weights {nbytes / 1e9:.2f} GB, plan {plan}")
+    reqs = make_requests(cfg, 16, 200.0, seed=0, mean_prompt=256, max_new=8)
+    launches, res, steps = serve_counted(model, reqs, (flash_attention,
+                                                       decode_attention))
+    assert any(r.reused_tokens >= 32 for r in res), "no prefix reuse"
+    assert launches["flash_attention"] >= cfg.n_layers * len(reqs), launches
+    assert launches["decode_attention"] >= cfg.n_layers * steps, launches
+    rows, busy = serve_profiled(
+        model, reqs, spans={"moe prefill (grouped)": (blocks, "_moe_local"),
+                            "moe decode (token gather)": (
+                                blocks, "_moe_token_gather")})
+    device_shares(rows, busy, [
+        ("flash_attention", ("flashmma", "flashf32")),
+        ("decode_attention", ("decodekernel",)),
+        ("split-KV combine", ("combinekernel",)),
+        ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
+        ("group offsets (searchsorted)", ("searchsorted",)),
+        ("sort (the expert argsort, top-k's)", ("sort",)),
+        ("top-k", ("topk", "radixselect")),
+        ("index, gather, scatter (the decode weight gather among them)",
+         ("index", "gather", "scatter"))])
+    prefill_syncs(model, reqs[0].tokens)
+    moe_decode_cost(model)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
     return launches
 
 
@@ -683,7 +829,35 @@ def _admit(model, caches, n):
     return batch._stacked             # the stacked caches the step reads
 
 
+class RoutingLog:
+    """Within ``with``, every ``_route`` call records the chosen experts
+    (sorted per token) and the smallest margin between the top-k-th and the
+    next expert's probability."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        self._inner = inner = blocks._route
+
+        def route(x_flat, router, top_k):
+            gates, idx = inner(x_flat, router, top_k)
+            probs = torch.softmax(x_flat.float() @ router, dim=-1)
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            self.calls.append((idx.sort(-1).values.cpu(),
+                               float((top[:, -2] - top[:, -1]).min())))
+            return gates, idx
+        blocks._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks._route = self._inner
+
+
 def phase_whole_model(arch, n_layers=None, n=256):
+    import contextlib
     import dataclasses
 
     from repro_torch.models import build_model
@@ -701,15 +875,18 @@ def phase_whole_model(arch, n_layers=None, n=256):
     cpu.load_state_dict(gpu.state_dict())
     toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, n + 4))
     diffs, scale = [], 0.0
-    outs = {}
+    outs, routes = {}, {}
     for name, m in (("cuda", gpu), ("cpu", cpu)):
         t0 = time.perf_counter()
-        lg, caches = m.prefill({"tokens": toks[:, :n]})
-        steps = [lg]
-        caches = _admit(m, caches, n)
-        for s in range(4):
-            lg, caches = m.decode_step(caches, toks[:, n + s:n + s + 1], n + s)
-            steps.append(lg)
+        with (RoutingLog() if cfg.n_experts
+              else contextlib.nullcontext()) as routes[name]:
+            lg, caches = m.prefill({"tokens": toks[:, :n]})
+            steps = [lg]
+            caches = _admit(m, caches, n)
+            for s in range(4):
+                lg, caches = m.decode_step(caches, toks[:, n + s:n + s + 1],
+                                           n + s)
+                steps.append(lg)
         # the real vocab only: padded logits are -1e30 on both sides
         outs[name] = [x[..., :cfg.vocab].float().cpu() for x in steps]
         log(f"  {name}: prefill + 4 decode steps {time.perf_counter() - t0:.3f} s")
@@ -725,6 +902,16 @@ def phase_whole_model(arch, n_layers=None, n=256):
     # (those move logits by O(1) of scale)
     log(f"  max |logit diff| per step {['%.3e' % d for d in diffs]}, "
         f"max |logit| {scale:.3f}, relative {rel:.3e} (tol 1e-3)")
+    if cfg.n_experts:
+        # routing is discontinuous: a near tie between the top-k-th and the
+        # next expert could flip under summation-order differences; a
+        # failure with no routing difference is a fault of the path
+        calls = list(zip(routes["cuda"].calls, routes["cpu"].calls))
+        differ = sum(not torch.equal(a[0], b[0]) for a, b in calls)
+        margin = min(m for a, b in calls for m in (a[1], b[1]))
+        log(f"  routing: {len(calls)} router calls a side, smallest "
+            f"top-{cfg.top_k}/top-{cfg.top_k + 1} probability margin "
+            f"{margin:.3e}, calls whose experts differ card vs CPU: {differ}")
     if not rel <= 1e-3:
         raise SystemExit(f"{arch}: whole-model logits disagree between card "
                          "and CPU")
@@ -782,6 +969,9 @@ def main() -> int:
     # line keeps 3a's counts for them and reads rglru_scan's from 3c
     hybrid = run_phase("3c", phase_serve_hybrid)
     launches["rglru_scan"] = hybrid["rglru_scan"]
+    # 3d launches both attention kernels at head dim 128; the kernels line
+    # keeps 3a's counts for them
+    run_phase("3d", phase_serve_moe)
     run_phase("4a", phase_whole_model, "smollm-360m")
     run_phase("4b", phase_whole_model, "mamba2-1.3b")
     # float32 at full depth would be 38.5 GB on each side: depth 5 is one
@@ -789,6 +979,9 @@ def main() -> int:
     # 2048 window, so the decode steps run through the rolled ring
     run_phase("4c", phase_whole_model, "recurrentgemma-9b", n_layers=5,
               n=2112)
+    # float32 at full depth would be 65.5 GB on each side: depth 4 is the
+    # dense first layer and 3 MoE layers, ~8.8 GB a side
+    run_phase("4d", phase_whole_model, "deepseek-moe-16b", n_layers=4)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

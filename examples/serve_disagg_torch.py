@@ -18,11 +18,16 @@ prefix index, then a burst of follow-ups extends them. For an SSM
 (``--arch mamba2-1.3b``) or a hybrid (``--arch recurrentgemma-9b``) that is
 what snapshot reuse needs: the index keeps the whole per-sequence state at
 the end of each prefill (for the hybrid, with the local-attention layers'
-last ``window`` keys), and only an exact prefix resumes it.
+last ``window`` keys), and only an exact prefix resumes it. The dense
+decoder (``--arch smollm-360m``) and the mixture of experts
+(``--arch deepseek-moe-16b``: a dense first layer, then routed and shared
+experts) keep paged K/V, and any page-aligned prefix resumes.
 
     PYTHONPATH=src python examples/serve_disagg_torch.py --arch mamba2-1.3b
     PYTHONPATH=src python examples/serve_disagg_torch.py \
         --arch recurrentgemma-9b --full
+    PYTHONPATH=src python examples/serve_disagg_torch.py \
+        --arch deepseek-moe-16b --full
     PYTHONPATH=src python examples/serve_disagg_torch.py --full   # full width
     # on a machine without a card: --device cpu (plain PyTorch path)
 """

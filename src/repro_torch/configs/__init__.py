@@ -1,10 +1,11 @@
 """repro_torch.configs — the architectures the port serves so far (exact
 public configs + reduced smoke variants): the dense smollm-360m, the
-attention-free SSM mamba2-1.3b and the hybrid recurrentgemma-9b."""
+attention-free SSM mamba2-1.3b, the hybrid recurrentgemma-9b and the
+mixture of experts deepseek-moe-16b."""
 from .base import ArchConfig, ShapeCell, SHAPES
-from . import mamba2_1_3b, recurrentgemma_9b, smollm_360m
+from . import deepseek_moe_16b, mamba2_1_3b, recurrentgemma_9b, smollm_360m
 
-_MODULES = (smollm_360m, mamba2_1_3b, recurrentgemma_9b)
+_MODULES = (smollm_360m, mamba2_1_3b, recurrentgemma_9b, deepseek_moe_16b)
 ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKES = {m.CONFIG.name: m.SMOKE for m in _MODULES}
 

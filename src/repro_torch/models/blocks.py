@@ -1,5 +1,6 @@
 """Decoder blocks: GQA attention (full or local), the SwiGLU FFN, the
-Mamba2 (SSD) mixer and the RG-LRU recurrent block of RecurrentGemma.
+mixture-of-experts FFN (routed and shared experts), the Mamba2 (SSD) mixer
+and the RG-LRU recurrent block of RecurrentGemma.
 
 ``attn_apply`` has the JAX package's serving modes:
   * ``prefill`` — full-sequence causal; with ``cache`` a *suffix* prefill
@@ -13,7 +14,9 @@ positions back, keeps only the last ``window`` positions in its prefill
 cache and decodes into a ring buffer (see ``attn_apply``). int8 KV waits
 for the slice whose model needs it. ``ssd_apply`` and ``rglru_apply`` have
 the same three modes over a per-sequence ``{"conv", "state"}`` cache (see
-``ssd_apply``'s docstring).
+``ssd_apply``'s docstring). ``moe_apply`` is the JAX package's
+single-device MoE: tokens sorted by expert through grouped products for a
+prefill, each token through its experts' gathered weights for decode.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
 from .sharding import HEAD_PAD, pad_to_multiple
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "ffn_init",
-           "ffn_apply", "SSD", "ssd_init", "ssd_apply", "RGLRU",
-           "rglru_init", "rglru_apply"]
+           "ffn_apply", "MoE", "moe_init", "moe_apply", "SSD", "ssd_init",
+           "ssd_apply", "RGLRU", "rglru_init", "rglru_apply"]
 
 
 @dataclass(frozen=True)
@@ -166,6 +169,122 @@ def ffn_init(cfg: ArchConfig, d_ff: Optional[int] = None, *,
 
 def ffn_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return p(x)
+
+
+# ------------------------------------------------------------------ MoE FFN
+class MoE(nn.Module):
+    """Routed experts and the shared ones, named as the JAX ``moe_init``
+    pytree: ``router`` [d, E] (float32 in any model dtype), ``w_in`` and
+    ``w_gate`` [E, d, F], ``w_out`` [E, F, d] and, with ``n_shared``, a
+    ``shared`` SwiGLU of width ``n_shared * F``."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_expert or cfg.d_ff
+
+        def param(shape, dt=dtype):
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
+                                requires_grad=False)
+        self.router = param((d, E), torch.float32)
+        self.w_in = param((E, d, F_))
+        self.w_gate = param((E, d, F_))
+        self.w_out = param((E, F_, d))
+        self.shared = (SwiGLU(d, cfg.n_shared * F_, dtype=dtype,
+                              device=device) if cfg.n_shared else None)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The JAX init: N(0, 1/d) router and expert inputs, N(0, 1/F)
+        expert outputs, the shared SwiGLU as a dense one."""
+        d, F_ = self.w_in.shape[1], self.w_in.shape[2]
+        for w in (self.router, self.w_in, self.w_gate):
+            normal_(w, generator, d ** -0.5)
+        normal_(self.w_out, generator, F_ ** -0.5)
+        if self.shared is not None:
+            self.shared.init(generator)
+
+
+def moe_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> MoE:
+    return MoE(cfg, dtype=dtype, device=device)
+
+
+def _route(x_flat: torch.Tensor, router: torch.Tensor, top_k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax over the experts in float32, the ``top_k`` largest, gates
+    renormalised to sum to one. Returns (gates [N, K] float32, idx [N, K])."""
+    probs = torch.softmax(x_flat.float() @ router, dim=-1)
+    gates, idx = torch.topk(probs, top_k, dim=-1)
+    return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+
+def _expert_ffn(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
+                x: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
+    """Grouped SwiGLU over rows sorted by expert, the function of JAX's
+    ``ragged_dot``: row ``r`` of ``x`` goes through expert ``expert[r]``
+    (non-decreasing). Each group is laid at the front of its expert's slot
+    of an ``[E, C, d]`` buffer, C the largest group, and the three products
+    run batched over the experts, each expert's weights read once; the zero
+    rows past a group are never read back.
+
+    C is read on the host, one synchronisation a call: the buffer is sized
+    by it. The group offsets come from a search over the sorted ids (JAX's
+    ``bincount`` group sizes, as offsets), which needs no host read of the
+    ids' range as ``torch.bincount`` makes on the card."""
+    E, D = w_in.shape[0], x.shape[-1]
+    bounds = torch.searchsorted(expert, torch.arange(
+        E + 1, device=x.device, dtype=expert.dtype))
+    C = int((bounds[1:] - bounds[:-1]).max())
+    pos = torch.arange(x.shape[0], device=x.device) - bounds[expert]
+    xp = x.new_zeros(E, C, D)
+    xp[expert, pos] = x
+    h = F.silu(torch.bmm(xp, w_gate)) * torch.bmm(xp, w_in)   # [E, C, F]
+    return torch.bmm(h, w_out)[expert, pos]
+
+
+def _moe_local(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The prefill path: the (token, expert) pairs sorted by expert (a
+    stable sort, as JAX's ``argsort``), the grouped SwiGLU, gates applied in
+    the activation dtype and the rows added back per token in ``x``'s
+    dtype."""
+    B, T, D = x.shape
+    xf = x.reshape(-1, D)
+    gates, idx = _route(xf, p.router, cfg.top_k)
+    flat_e = idx.reshape(-1)                                  # [N*K]
+    order = torch.argsort(flat_e, stable=True)
+    src = order // cfg.top_k                                  # token of a row
+    y = _expert_ffn(p.w_in, p.w_gate, p.w_out, xf[src], flat_e[order])
+    y = y * gates.reshape(-1)[order][:, None].to(y.dtype)
+    return torch.zeros_like(xf).index_add_(0, src, y).reshape(B, T, D)
+
+
+def _moe_token_gather(p: MoE, x: torch.Tensor, cfg: ArchConfig
+                      ) -> torch.Tensor:
+    """The decode path: each token through its ``top_k`` experts' weights,
+    gathered per token (``[N, K, d, F]``), with no host synchronisation.
+    The contractions are JAX's einsums written as batched products over the
+    gathered weights as they lie: per (token, expert) ``x w`` over d, then
+    one product over (expert, F) for the gated output."""
+    B, T, D = x.shape
+    xf = x.reshape(-1, D)
+    N, K = xf.shape[0], cfg.top_k
+    gates, idx = _route(xf, p.router, K)
+    w_in, w_g, w_o = p.w_in[idx], p.w_gate[idx], p.w_out[idx]
+    xk = xf[:, None, None, :]                                 # [N, 1, 1, d]
+    h = F.silu(xk @ w_g) * (xk @ w_in)                        # [N, K, 1, F]
+    h = h * gates[..., None, None].to(h.dtype)
+    y = h.reshape(N, 1, -1) @ w_o.reshape(N, -1, D)           # [N, 1, d]
+    return y.reshape(B, T, D).to(x.dtype)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, *, cfg: ArchConfig, mode: str
+              ) -> torch.Tensor:
+    """x: [B, T, D]. The token gather for decode, the sorted grouped
+    products otherwise, plus the shared experts."""
+    local = _moe_token_gather if mode == "decode" else _moe_local
+    y = local(p, x, cfg)
+    if p.shared is not None:
+        y = y + p.shared(x)
+    return y
 
 
 # ------------------------------------------------------------ Mamba2 (SSD)

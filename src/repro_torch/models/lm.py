@@ -1,7 +1,9 @@
-"""Model assembly for the dense decoder, the attention-free SSM (Mamba2)
-and the hybrid (RecurrentGemma: RG-LRU blocks and local attention)
-families: embedding, ``count`` blocks of sublayers per segment, final norm
-and the unembedding (tied to the embedding, or its own ``unembed``).
+"""Model assembly for the dense decoder, the mixture of experts (DeepSeek
+style: ``first_dense`` dense layers, then MoE layers), the attention-free
+SSM (Mamba2) and the hybrid (RecurrentGemma: RG-LRU blocks and local
+attention) families: embedding, ``count`` blocks of sublayers per segment,
+final norm and the unembedding (tied to the embedding, or its own
+``unembed``).
 
 Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
   init(generator)                      -> fills the parameters in place
@@ -32,7 +34,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .blocks import (AttnDims, attn_apply, attn_init, ffn_apply, ffn_init,
-                     rglru_apply, rglru_init, ssd_apply, ssd_init)
+                     moe_apply, moe_init, rglru_apply, rglru_init, ssd_apply,
+                     ssd_init)
 from .layers import Dense, RMSNorm, normal_
 from .sharding import HEAD_PAD, pad_to_multiple
 
@@ -52,7 +55,9 @@ def plan_segments(cfg: ArchConfig) -> List[Segment]:
     """As the JAX ``plan_segments``: a hybrid repeats its ``block_pattern``
     unit ``n_layers // len(pattern)`` times, then a tail segment of the
     remaining sublayers, with the window on the attention sublayers only;
-    any other model is one segment of ``n_layers`` layers."""
+    a mixture of experts with ``first_dense`` layers is a dense segment of
+    those and an MoE segment of the rest; any other model is one segment
+    of ``n_layers`` layers (MoE when it has experts)."""
     _check_supported(cfg)
     if cfg.block_pattern:
         def kinds(n):
@@ -63,19 +68,23 @@ def plan_segments(cfg: ArchConfig) -> List[Segment]:
         segs = [Segment(n_units, kinds(len(cfg.block_pattern)))] \
             if n_units else []
         return segs + ([Segment(1, kinds(rem))] if rem else [])
-    return [Segment(cfg.n_layers, ((cfg.layer_kind(0), False, cfg.window),))]
+    kind, w = cfg.layer_kind(0), cfg.window
+    if cfg.n_experts and cfg.first_dense:
+        return [Segment(cfg.first_dense, ((kind, False, w),)),
+                Segment(cfg.n_layers - cfg.first_dense, ((kind, True, w),))]
+    return [Segment(cfg.n_layers, ((kind, cfg.n_experts > 0, w),))]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     unsupported = {
-        "family": cfg.family not in ("dense", "ssm", "hybrid"),
-        "n_experts": bool(cfg.n_experts), "use_mla": cfg.use_mla,
-        "enc_layers": bool(cfg.enc_layers), "mtp": bool(cfg.mtp)}
+        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
+        "use_mla": cfg.use_mla, "enc_layers": bool(cfg.enc_layers),
+        "mtp": bool(cfg.mtp)}
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoders, SSMs and hybrids "
-            f"so far; unsupported fields: {bad}")
+            f"{cfg.name}: the port serves dense decoders, mixtures of "
+            f"experts, SSMs and hybrids so far; unsupported fields: {bad}")
 
 
 _MIXER_INIT = {"attn": attn_init, "ssm": ssd_init, "rec": rglru_init}
@@ -83,24 +92,27 @@ _MIXER_INIT = {"attn": attn_init, "ssm": ssd_init, "rec": rglru_init}
 
 class Layer(nn.Module):
     """Attention or RG-LRU (``rec``): rmsnorm -> mixer -> residual ->
-    rmsnorm -> SwiGLU -> residual. SSM (Mamba2): rmsnorm -> SSD mixer ->
-    residual, no FFN. ``window`` is the local-attention window of an
-    attention sublayer (0: full)."""
+    rmsnorm -> FFN -> residual, the FFN a SwiGLU (``ffn``) or, with
+    ``is_moe``, the experts (``ffn_moe``, the JAX pytree's name). SSM
+    (Mamba2): rmsnorm -> SSD mixer -> residual, no FFN. ``window`` is the
+    local-attention window of an attention sublayer (0: full)."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, window: int = 0, *,
-                 dtype, device):
+    def __init__(self, cfg: ArchConfig, kind: str, window: int = 0,
+                 is_moe: bool = False, *, dtype, device):
         super().__init__()
         self.kind, self.window = kind, window
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.mix = _MIXER_INIT[kind](cfg, dtype=dtype, device=device)
-        if kind == "ssm":
-            self.ln2 = self.ffn = None
-        else:
+        self.ln2 = self.ffn = self.ffn_moe = None
+        if kind != "ssm":
             self.ln2 = RMSNorm(cfg.d_model, device=device)
-            self.ffn = ffn_init(cfg, dtype=dtype, device=device)
+            if is_moe:
+                self.ffn_moe = moe_init(cfg, dtype=dtype, device=device)
+            else:
+                self.ffn = ffn_init(cfg, dtype=dtype, device=device)
 
     def init(self, generator: torch.Generator) -> None:
-        for m in (self.ln1, self.mix, self.ln2, self.ffn):
+        for m in (self.ln1, self.mix, self.ln2, self.ffn, self.ffn_moe):
             if m is not None:
                 m.init(generator)
 
@@ -118,12 +130,15 @@ class Layer(nn.Module):
                                       cache=cache, pos=pos,
                                       window=self.window)
         x = x + h
-        x = x + ffn_apply(self.ffn, self.ln2(x, cfg.norm_eps))
-        return x, mix_cache
+        h = self.ln2(x, cfg.norm_eps)
+        if self.ffn_moe is not None:
+            return x + moe_apply(self.ffn_moe, h, cfg=cfg, mode=mode), \
+                mix_cache
+        return x + ffn_apply(self.ffn, h), mix_cache
 
 
 class Model(nn.Module):
-    """Causal LM: dense, SSM or hybrid. Parameters are ``embed`` [Vp, d],
+    """Causal LM: dense, MoE, SSM or hybrid. Parameters are ``embed`` [Vp, d],
     ``ln_f``, ``unembed`` [d, Vp] when the embeddings are not tied, and one
     ``seg{i}`` ModuleList per segment holding ``count`` blocks of sublayers
     (the JAX pytree's ``vmap``-stacked ``count`` axis, unstacked)."""
@@ -142,9 +157,9 @@ class Model(nn.Module):
             cfg.d_model, self.vocab_padded, dtype=dtype, device=device)
         for si, seg in enumerate(self.segments):
             self.add_module(f"seg{si}", nn.ModuleList(
-                nn.ModuleList(Layer(cfg, kind, window, dtype=dtype,
+                nn.ModuleList(Layer(cfg, kind, window, is_moe, dtype=dtype,
                                     device=device)
-                              for kind, _, window in seg.kinds)
+                              for kind, is_moe, window in seg.kinds)
                 for _ in range(seg.count)))
 
     @property

@@ -8,6 +8,7 @@ on a machine that has only PyTorch:
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -16,6 +17,7 @@ from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.ssd_scan import (STATE_DIMS, ssd_chunked,
                                           ssd_chunked_plain, ssd_plan)
+from repro_torch.models.blocks import moe_apply, moe_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -112,6 +114,69 @@ def test_decode_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,qoff", [(256, 256, 0), (224, 256, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_moe_attention_shapes_on_card(T, S, qoff, dtype):
+    """deepseek-moe-16b's attention: 16 query heads over 16 KV heads, head
+    dim 128; a 256-token prompt and its suffix over a reused 32-token
+    prefix."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(T + qoff)
+    tdt = DTYPES[dtype]
+    q = torch.randn(1, T, 16, 128, generator=g, device=dev).to(tdt)
+    k, v = (torch.randn(1, S, 16, 128, generator=g, device=dev).to(tdt)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=True, q_offset=qoff)
+    want = flash_attention_plain(q, k, v, causal=True, q_offset=qoff)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_head_dim_128_mha_on_card(dtype):
+    """deepseek-moe-16b's decode step: 8 slots of 1024 over 16 KV heads,
+    head dim 128."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(128)
+    tdt = DTYPES[dtype]
+    q = torch.randn(8, 16, 128, generator=g, device=dev).to(tdt)
+    k, v = (torch.randn(8, 1024, 16, 128, generator=g, device=dev).to(tdt)
+            for _ in range(2))
+    lengths = torch.tensor([1, 1024, 0, 17, 128, 129, 512, 1000],
+                           dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths)
+    want = decode_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    assert torch.all(got[2] == 0)                    # length 0 gives 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape", [("prefill", (1, 256)),
+                                        ("decode", (8, 1))])
+def test_moe_layer_matches_cpu_on_card(mode, shape):
+    """One full-width deepseek-moe-16b MoE layer (64 experts, top-6, 2
+    shared) in float32 on the card against the same layer on the CPU: the
+    sorted grouped path of a 256-token prefill and the token gather of an
+    8-slot decode step. 1e-4: float32 on both sides (no TF32), only the
+    order of summation over 2048 and 1408 terms differs."""
+    dev = _card()
+    cfg = ARCHS["deepseek-moe-16b"]
+    cpu = moe_init(cfg, dtype=torch.float32, device="cpu")
+    cpu.init(torch.Generator().manual_seed(0))
+    card = moe_init(cfg, dtype=torch.float32, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(*shape, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    want = moe_apply(cpu, x, cfg=cfg, mode=mode)
+    got = moe_apply(card, x.to(dev), cfg=cfg, mode=mode)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 # smollm-360m's padded map: 15 heads in groups of 3 over 5 KV heads, the

@@ -192,9 +192,14 @@ def test_q_to_kv_map_nonuniform_at_full_width():
 
 
 def test_unsupported_family_raises():
-    cfg = dataclasses.replace(SMOKES["smollm-360m"], n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    """Experts are served now; MLA, encoder-decoder and MTP still raise."""
+    base = SMOKES["smollm-360m"]
+    for change in (dict(use_mla=True), dict(enc_layers=2), dict(mtp=True),
+                   dict(family="audio")):
+        with pytest.raises(NotImplementedError):
+            build_model(dataclasses.replace(base, **change), device="cpu")
+    build_model(dataclasses.replace(base, n_experts=4, top_k=2),
+                device="cpu")
 
 
 # ------------------------------------------------------------------ layers

@@ -21,7 +21,8 @@ COPIES = ([f"core/{p.name}" for p in sorted((SRC / "repro/core").glob("*.py"))]
           + [f"netsim/{n}.py" for n in ("__init__", "events", "fluid",
                                         "topology")]
           + ["configs/base.py", "configs/smollm_360m.py",
-             "configs/mamba2_1_3b.py", "configs/recurrentgemma_9b.py"])
+             "configs/mamba2_1_3b.py", "configs/recurrentgemma_9b.py",
+             "configs/deepseek_moe_16b.py"])
 
 
 def _modules():
