@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
      products three times, 3xTF32, at the TF32 tensor-core peak). The
      attention kernels take the stored KV heads and the query-head ->
      KV-head map: 16 heads over 16 (deepseek-moe-16b's MHA at head dim
-     128 among them), smollm's 16 over 5, recurrentgemma's 16 over 1.
+     128 among them), smollm's 16 over 5, recurrentgemma's 16 over 1,
+     starcoder2-3b's 32 over 2, qwen1.5-32b's 48 over 40 at S = 32768 with
+     int8 K/V and bf16 K/V.
      Times are device times: ``REPS`` calls captured in one CUDA graph and
      replayed, so the host's launch cost is left out; the eager time per
      call (host included) is printed beside;
@@ -36,12 +38,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
      share of device time of each attention kernel and of ``rglru_scan``,
      3d the share of the GEMMs, the sort, the index kernels, each attention
      kernel and the MoE paths, the host synchronisations of a prefill and
-     the decode-time weight gather alone;
+     the decode-time weight gather alone; then full-width full-depth
+     minitron-8b (3e) and starcoder2-3b (3f) on 3a's stream; 3g decodes
+     full-width qwen1.5-32b at depth 16 for 8 sequences of ~32k tokens
+     from an int8 KV cache (42.9 GB; in bf16 it would not fit), read by
+     the decode kernel as codes, timed against the bf16 step at the batch
+     that fits and held to the JAX model's int8-vs-bf16 criterion;
   4. whole model — each model in float32 through the kernels on the card
      and through the plain versions on the CPU: prefill of a prompt (256
      tokens; 2112 for recurrentgemma-9b, cut to depth 5; deepseek-moe-16b
-     cut to depth 4) and 4 decode steps on the caches admitted as
-     ``DecodeBatch.add`` admits them, logits compared.
+     cut to depth 4; minitron-8b and qwen1.5-32b to 2, starcoder2-3b to 4)
+     and 4 decode steps on the caches admitted as ``DecodeBatch.add``
+     admits them (for qwen1.5-32b int8 caches on both sides, the codes
+     that differ counted), logits compared.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -118,6 +127,24 @@ def check(name, got, want, tol):
     return err.max().item()
 
 
+def check_rows(name, got, want, rel):
+    """Each sequence's output (``[B, H, D]``) held to ``rel`` of its own
+    largest value; prints each row's RMS, largest value, error and limit."""
+    want, got = want.float(), got.float()
+    err = (got - want).abs().amax(dim=(1, 2))
+    top = want.abs().amax(dim=(1, 2))
+    rms = want.pow(2).mean(dim=(1, 2)).sqrt()
+    ok = bool(torch.all(err <= rel * top))
+    log(f"  {name}: max_abs_err={err.max().item():.3e}, per row at most "
+        f"{rel:g} of its largest value {'ok' if ok else 'FAIL'}")
+    for b in range(want.shape[0]):
+        log(f"    row {b}: rms {rms[b].item():.3e} max {top[b].item():.3e} "
+            f"err {err[b].item():.3e} limit {rel * top[b].item():.3e}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err.max().item()
+
+
 def bound_ms(flops, nbytes, dtype, peak=None):
     """The larger of the operations at ``peak`` (default: the dtype's) and
     the bytes at the HBM rate, in ms, and which of the two it is."""
@@ -126,6 +153,14 @@ def bound_ms(flops, nbytes, dtype, peak=None):
 
 
 # ------------------------------------------------------------------ phase 2
+#: starcoder2-3b's query-head -> KV-head map: min(h // 12, 1) over 32 heads
+STARCODER2_MAP = [min(h // 12, 1) for h in range(32)]
+#: qwen1.5-32b's decode cells: 8 sequences of a 32768-slot cache
+QWEN_S = 32768
+QWEN_LENGTHS = [1, QWEN_S, QWEN_S - 1, QWEN_S - 24, 17, 20037, QWEN_S // 2 + 1,
+                QWEN_S - 100]
+
+
 def kv_map_of(H, kv_heads):
     """The query-head -> KV-head map of ``kv_heads`` stored heads, int32 on
     the card (None when every query head has its own): one head for MQA,
@@ -148,10 +183,18 @@ def expanded(x, kv_map):
     return expand_kv(x, kv_map)
 
 
+def map_tensor(H, kv_heads, kv_map):
+    """``kv_map`` (a list) as the int32 tensor the kernels take, else
+    ``kv_map_of``'s map."""
+    if kv_map is None:
+        return kv_map_of(H, kv_heads)
+    return torch.tensor(kv_map, dtype=torch.int32, device="cuda")
+
+
 def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
-               B=1, H=16, kv_heads=None):
+               B=1, H=16, kv_heads=None, kv_map=None):
     """K/V hold ``kv_heads`` (default ``H``) stored heads, read through the
-    map as the model passes them."""
+    map as the model passes them (``kv_map``, a list, or ``kv_map_of``'s)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     Hk = kv_heads or H
@@ -160,7 +203,7 @@ def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
     k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
             for _ in range(2))
     kw = dict(causal=causal, q_offset=q_offset, window=window,
-              kv_map=kv_map_of(H, Hk))
+              kv_map=map_tensor(H, Hk, kv_map))
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -190,36 +233,55 @@ def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
                   flops, nbytes, dtype, err)
 
 
-def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None):
+def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None, *,
+                kv_map=None, lengths=None, int8=False, label="",
+                plain_reps=REPS, row_rel=None):
+    """Decode at ``B`` sequences over ``S`` slots of ``kv_heads`` stored
+    heads (``kv_map`` as in ``flash_case``); ``lengths`` default to row 2's.
+    With ``int8`` the K/V are the model's int8 codes of N(0, 1) values
+    (``blocks._kv_store``): the kernel reads the codes, the plain version
+    dequantises them first, and the SDPA yardstick runs on K/V dequantised
+    and expanded beforehand, untimed; the bound counts one byte a K/V
+    element. With ``row_rel`` each sequence's output is held to that share
+    of its own largest value (``check_rows``) instead of ``TOL``."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    from repro_torch.models.blocks import _KV_QSCALE, _kv_load, _kv_store
     Hk = kv_heads or H
     g = torch.Generator(device="cuda").manual_seed(S + D)
     q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
     k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
             for _ in range(2))
-    kv_map = kv_map_of(H, Hk)
-    lengths = torch.tensor([1, S, 0, 17, 128, 129, S // 2, S - 24],
+    kv_scale = None
+    if int8:
+        k, v = (_kv_store(x, torch.int8) for x in (k, v))
+        kv_scale = 1.0 / _KV_QSCALE
+    kv_map = map_tensor(H, Hk, kv_map)
+    lengths = torch.tensor(lengths or [1, S, 0, 17, 128, 129, S // 2, S - 24],
                            dtype=torch.int32, device="cuda")[:B]
-    got = decode_attention(q, k, v, lengths, kv_map=kv_map)
-    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map)
+    kw = dict(kv_map=kv_map, kv_scale=kv_scale)
+    got = decode_attention(q, k, v, lengths, **kw)
+    want = decode_attention_plain(q, k, v, lengths, **kw)
     torch.cuda.synchronize()
-    name = (f"decode_attention[B={B},S={S},D={D},Hk={Hk},"
-            f"{str(dtype)[6:]}]")
-    err = check(name, got, want, TOL[dtype])
+    name = (f"decode_attention[{label + ' ' if label else ''}B={B},S={S},"
+            f"D={D},H={H},Hk={Hk},{str(dtype)[6:]}"
+            f"{', K/V int8' if int8 else ''}]")
+    err = (check(name, got, want, TOL[dtype]) if row_rel is None
+           else check_rows(name, got, want, row_rel))
     keys = int(lengths.sum())
     flops = 4.0 * H * D * keys
-    nbytes = (2 * keys * Hk * D + 2 * B * H * D) * q.element_size() + 4 * B
+    nbytes = (2 * keys * Hk * D * k.element_size()
+              + 2 * B * H * D * q.element_size() + 4 * B)
     mask = (torch.arange(S, device="cuda")[None] < lengths[:, None])
     qt = q[:, :, None]
-    kt, vt = (expanded(x, kv_map).transpose(1, 2) for x in (k, v))
+    kt, vt = (expanded(_kv_load(x, dtype), kv_map).transpose(1, 2)
+              for x in (k, v))
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[:, None, None])
     return _timed(name,
-                  lambda: decode_attention(q, k, v, lengths, kv_map=kv_map),
-                  lambda: decode_attention_plain(q, k, v, lengths,
-                                                 kv_map=kv_map), lib,
-                  flops, nbytes, dtype, err)
+                  lambda: decode_attention(q, k, v, lengths, **kw),
+                  lambda: decode_attention_plain(q, k, v, lengths, **kw), lib,
+                  flops, nbytes, dtype, err, plain_reps=plain_reps)
 
 
 def _timed(name, kernel, plain, lib, flops, nbytes, dtype, err,
@@ -438,6 +500,31 @@ def phase_kernels():
         flash_case("deepseek-moe-16b suffix D=128 T=224 S=256 q_offset=32 "
                    "MHA", dtype, 224, 256, 128, q_offset=32)
         decode_case(dtype, D=128)
+        # starcoder2-3b's attention (1s, 2s): 24 heads padded to 32 over 2
+        # KV heads in groups of 12 and 20 (the second holds the 8 padded
+        # heads), head dim 128
+        flash_case("1s starcoder2-3b D=128 T=S=512 32->2", dtype, 512, 512,
+                   128, H=32, kv_heads=2, kv_map=STARCODER2_MAP)
+        decode_case(dtype, H=32, D=128, kv_heads=2, kv_map=STARCODER2_MAP,
+                    label="2s starcoder2-3b")
+    # qwen1.5-32b's decode step at 32k (2q8, 2q16): 40 MHA heads padded to
+    # 48 over the 40 KV heads of an init_cache cache (the map is the
+    # identity over 48; the kernel clamps the padded heads to the last),
+    # 8 sequences, lengths 1, full and off the 64-key tile; K/V int8 as
+    # phase 3g decodes them, and bf16. Over 16k-32k keys of N(0, 1) values
+    # an output is ~0.01, so the bf16 cases are held row by row to one bf16
+    # ulp of the row's largest value (both sides round a float32 result to
+    # bf16), not to TOL's 2e-2; the float32 run of 2q8 holds the split plan
+    # and the int8 loads at TOL's 2e-5. The plain version holds the whole
+    # cache expanded to 48 heads (~13 GB a call in bf16): 2 calls a graph
+    for label, dtype, int8 in (
+            ("2q8 qwen1.5-32b", torch.bfloat16, True),
+            ("2q16 qwen1.5-32b", torch.bfloat16, False),
+            ("2q8 qwen1.5-32b", torch.float32, True)):
+        decode_case(dtype, H=48, D=128, S=QWEN_S, kv_heads=40,
+                    kv_map=list(range(48)), lengths=QWEN_LENGTHS, int8=int8,
+                    label=label, plain_reps=2,
+                    row_rel=2.0 ** -7 if dtype is torch.bfloat16 else None)
     # mamba2-1.3b's serve shapes (H=64, hd=64, N=128), float32 as the model
     # feeds the scan (the conv output is float32)
     main["ssd_chunked"] = ssd_case("prefill Bz=1 T=256", 1, 256,
@@ -817,6 +904,213 @@ def phase_serve_moe():
     return launches
 
 
+def phase_serve_dense(arch, label, rps=200.0):
+    """3e, 3f: a dense model at full width and depth behind DisaggServer on
+    3a's stream (its requests at ``rps``), both attention kernels through
+    its padded head map, and at least one request's suffix prefill over a
+    reused 32-token paged prefix."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.blocks import AttnDims
+
+    torch.cuda.reset_peak_memory_stats()
+    model = _model(_arch(arch), torch.bfloat16)
+    cfg, dims = model.cfg, AttnDims.of(model.cfg)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{label}] serve: full-width full-depth {arch} ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads padded to "
+        f"{dims.n_q} over {cfg.n_kv} KV heads, head dim {dims.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; bf16, seed 0, weights "
+        f"{nbytes / 1e9:.2f} GB) behind DisaggServer(mfs), 2 prefill units, "
+        f"8 decode slots x 1024; 3a's stream at {rps:g} requests/s: 16 "
+        "requests, half on 4 Zipf-hot 32-token prefixes")
+    reqs = make_requests(cfg, 16, rps, seed=0, mean_prompt=256, max_new=8)
+    launches, res, steps = serve_counted(model, reqs, (flash_attention,
+                                                       decode_attention))
+    assert any(r.reused_tokens >= 32 for r in res), "no prefix reuse"
+    assert launches["flash_attention"] >= cfg.n_layers * len(reqs), launches
+    assert launches["decode_attention"] >= cfg.n_layers * steps, launches
+    rows, busy = serve_profiled(model, reqs)
+    device_shares(rows, busy, [
+        ("flash_attention", ("flashmma", "flashf32")),
+        ("decode_attention", ("decodekernel",)),
+        ("split-KV combine", ("combinekernel",)),
+        ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "xmma", "cutlass"))])
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+    return launches
+
+
+QWEN_DEPTH = 16     # of 64: what fits one card beside an int8 cache (3g)
+
+
+def prefill_into(model, tokens, caches, slot):
+    """One prompt through ``Model.prefill`` with a sink: each layer's K/V
+    are stored into slot ``slot`` of the decode ``caches`` as they hold it
+    (the real KV heads, through ``_kv_store`` into the caches' dtype) before
+    the next layer runs, so that a 32k prompt's cache of every layer is
+    never held at once. Returns the logits of its last position."""
+    from repro_torch.models.blocks import _kv_store
+    n = len(tokens)
+
+    def sink(si, i, c, nc):
+        for name, leaf in caches[si][i]["mix"].items():
+            leaf[c, slot, :n] = _kv_store(nc[name][0, :, :leaf.shape[3]],
+                                          leaf.dtype)
+    logits, _ = model.prefill({"tokens": np.asarray(tokens)[None]},
+                              sink=sink)
+    return logits
+
+
+def decode_timed(model, caches, tok, pos, steps=5):
+    """Decode steps with the same tokens at the same positions (each writes
+    the same K/V into the same slots): the host-clock seconds of one step,
+    ended by a synchronise, and the last step's logits."""
+    for _ in range(2):
+        model.decode_step(caches, tok, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, _ = model.decode_step(caches, tok, pos)
+    torch.cuda.synchronize()
+    return lg, (time.perf_counter() - t0) / steps
+
+
+def profile_step(label, fn):
+    """One call of ``fn`` under ``torch.profiler``: its device time and the
+    top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"  {label}: device time {busy:.3f} ms; top kernels:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "
+            f"calls  {e.key[:100]}")
+    return rows, busy
+
+
+def qwen_decode(model, prompts, B, kv_dtype, first=None):
+    """A decode cache of ``B`` sequences x ``QWEN_S`` slots in ``kv_dtype``,
+    the prompts prefilled into it (only ``prompts[0]`` when ``first`` is
+    given: its K/V are copied into the other slots, as the step's time does
+    not depend on what they hold, and ``first`` is its first token), then
+    decode steps timed and one profiled. The cache lives in this call
+    only. Returns the first tokens, slot 0's logits (float32, the real
+    vocab), the host-clock seconds and device ms of a step, the decode
+    kernel's launches over the timed steps and the device memory allocated
+    beyond the cache during them."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    lens = [len(p) for p in prompts[:B]]
+    caches = model.init_cache(B, QWEN_S, kv_dtype=kv_dtype)
+    t0 = time.perf_counter()
+    if first is None:
+        firsts = [int(prefill_into(model, p, caches, b)[0, -1].argmax())
+                  for b, p in enumerate(prompts[:B])]
+    else:
+        prefill_into(model, prompts[0], caches, 0)
+        for seg in caches:
+            for layer in seg:
+                for leaf in layer["mix"].values():
+                    leaf[:, 1:] = leaf[:, :1]
+        firsts, lens = [first] * B, [lens[0]] * B
+    torch.cuda.synchronize()
+    log(f"  {kv_dtype}: {B if first is None else 1} prefill(s) of "
+        f"{min(lens)}-{max(lens)} tokens, layer by layer into the cache: "
+        f"{time.perf_counter() - t0:.3f} s")
+    tok = torch.tensor(firsts, device=model.device)[:, None]
+    pos = torch.tensor(lens, device=model.device)
+    decode_attention.launches = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lg, t = decode_timed(model, caches, tok, pos)
+    extra = torch.cuda.max_memory_allocated() - base
+    launches = decode_attention.launches
+    _, dev = profile_step(f"{kv_dtype} decode step, B={B}",
+                          lambda: model.decode_step(caches, tok, pos))
+    return (firsts, lg[0, -1, :model.cfg.vocab].float(), t, dev, launches,
+            extra)
+
+
+def phase_qwen_int8():
+    """3g: qwen1.5-32b at full width, depth cut to ``QWEN_DEPTH``, decoding 8
+    sequences of ~32k tokens from an int8 KV cache read by the decode
+    kernel; held against a step over the bf16 cache of the same prefill."""
+    import dataclasses
+
+    from repro_torch.models.blocks import AttnDims
+
+    cfg = dataclasses.replace(_arch("qwen1.5-32b"), n_layers=QWEN_DEPTH)
+    model = _model(cfg, torch.bfloat16)
+    dims = AttnDims.of(cfg)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def per_seq(nbytes):          # one sequence's K/V of every layer
+        return 2 * cfg.n_layers * QWEN_S * cfg.n_kv * dims.hd * nbytes
+    work = 12e9                   # a 32k prefill's activations, with margin
+    log(f"[3g] decode-qwen1.5-32b-int8-32k: full width ({cfg.d_model}, "
+        f"{cfg.n_heads} MHA heads padded to {dims.n_q}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}), depth {cfg.n_layers} of 64; bf16 weights "
+        f"{weights / 1e9:.2f} GB, seed 0; card {total / 1e9:.2f} GB; 8 "
+        f"sequences x {QWEN_S} slots of {cfg.n_kv} KV heads: int8 "
+        f"{8 * per_seq(1) / 1e9:.2f} GB, bf16 {8 * per_seq(2) / 1e9:.2f} GB")
+    assert weights + 8 * per_seq(2) > total, "a bf16 cache at B=8 would fit"
+    assert weights + 8 * per_seq(1) + work < total
+    b16 = max(1, min(8, int((total - weights - work) // per_seq(2))))
+    rng = np.random.default_rng(0)
+    lens = [QWEN_S - 1 - 97 * b for b in range(8)]      # decode at pos < S
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)) for n in lens]
+
+    # int8: every sequence prefilled and stored as codes
+    firsts, lg8, t8, dev8, launches, extra = qwen_decode(
+        model, prompts, 8, torch.int8)
+    gc_cuda()
+    log(f"  device memory allocated after the int8 pass "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    # bf16, at the batch that fits beside the weights and a prefill, from
+    # the int8 pass's first token of sequence 0
+    _, lg16, t16, dev16, _, _ = qwen_decode(model, prompts, b16,
+                                            torch.bfloat16, first=firsts[0])
+    keys = sum(lens) + 8
+    cache_read = 2 * cfg.n_layers * keys * cfg.n_kv * dims.hd
+    log(f"  decode step, host clock: int8 B=8 {t8 * 1e3:.3f} ms "
+        f"({8 / t8:.1f} tokens/s), bf16 B={b16} {t16 * 1e3:.3f} ms "
+        f"({b16 / t16:.1f} tokens/s); device time {dev8:.3f} vs "
+        f"{dev16:.3f} ms; bytes an int8 step reads: weights "
+        f"{weights / 1e9:.2f} GB + K/V codes {cache_read / 1e9:.2f} GB, "
+        f"{(weights + cache_read) / HBM_BW * 1e3:.3f} ms at 3.35 TB/s")
+    log(f"  decode_attention launches over the {2 + 5} int8 steps: "
+        f"{launches}; device memory beyond the caches during them "
+        f"{extra / 1e6:.1f} MB (a bf16 copy of one layer's int8 K/V would be "
+        f"{per_seq(2) * 8 / cfg.n_layers / 1e9:.2f} GB)")
+    assert launches == cfg.n_layers * 7, launches
+    assert extra < 1e9, "the int8 step allocated a dequantised copy"
+    # the JAX model's criterion (tests/test_models.py): the step over the
+    # int8 codes against the step over the bf16 cache of the same prefill
+    a, b = torch.softmax(lg16, -1), torch.softmax(lg8, -1)
+    tv = float((a - b).abs().sum())
+    log(f"  int8 vs bf16, sequence 0: total variation {tv:.4f} (limit 0.25),"
+        f" argmax {int(a.argmax())} vs {int(b.argmax())}")
+    if not (tv < 0.25 and int(a.argmax()) == int(b.argmax())):
+        raise SystemExit("qwen1.5-32b: the int8 decode step strays from bf16")
+    assert torch.isfinite(lg8).all() and torch.isfinite(lg16).all()
+    return {"decode_attention": launches}
+
+
+def gc_cuda():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 4
 def _admit(model, caches, n):
     """The B=1 prefill ``caches`` of an ``n``-token prompt as
@@ -856,7 +1150,23 @@ class RoutingLog:
         blocks._route = self._inner
 
 
-def phase_whole_model(arch, n_layers=None, n=256):
+def _admit_int8(model, caches, n):
+    """The B=1 prefill ``caches`` of an ``n``-token prompt stored as int8
+    codes in a cache laid out as ``init_cache`` lays it (the real KV heads),
+    with room for the 4 decode steps."""
+    from repro_torch.models.blocks import _kv_store
+    out = model.init_cache(1, n + 8, kv_dtype=torch.int8)
+    for seg_o, seg_p in zip(out, caches):
+        for lo, lp in zip(seg_o, seg_p):
+            for name, leaf in lo["mix"].items():
+                leaf[:, :, :n] = _kv_store(
+                    lp["mix"][name][:, :, :, :leaf.shape[3]], torch.int8)
+    return out
+
+
+def phase_whole_model(arch, n_layers=None, n=256, int8=False):
+    """``int8``: the decode steps run over int8 caches on both sides, and the
+    codes that differ card vs CPU are counted."""
     import contextlib
     import dataclasses
 
@@ -875,20 +1185,23 @@ def phase_whole_model(arch, n_layers=None, n=256):
     cpu.load_state_dict(gpu.state_dict())
     toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, n + 4))
     diffs, scale = [], 0.0
-    outs, routes = {}, {}
+    outs, routes, codes = {}, {}, {}
     for name, m in (("cuda", gpu), ("cpu", cpu)):
         t0 = time.perf_counter()
         with (RoutingLog() if cfg.n_experts
               else contextlib.nullcontext()) as routes[name]:
             lg, caches = m.prefill({"tokens": toks[:, :n]})
             steps = [lg]
-            caches = _admit(m, caches, n)
+            caches = (_admit_int8 if int8 else _admit)(m, caches, n)
             for s in range(4):
                 lg, caches = m.decode_step(caches, toks[:, n + s:n + s + 1],
                                            n + s)
                 steps.append(lg)
         # the real vocab only: padded logits are -1e30 on both sides
         outs[name] = [x[..., :cfg.vocab].float().cpu() for x in steps]
+        if int8:
+            codes[name] = [leaf.cpu() for seg in caches for layer in seg
+                           for leaf in layer["mix"].values()]
         log(f"  {name}: prefill + 4 decode steps {time.perf_counter() - t0:.3f} s")
     for a, b in zip(outs["cuda"], outs["cpu"]):
         diffs.append(float((a - b).abs().max()))
@@ -912,6 +1225,14 @@ def phase_whole_model(arch, n_layers=None, n=256):
         log(f"  routing: {len(calls)} router calls a side, smallest "
             f"top-{cfg.top_k}/top-{cfg.top_k + 1} probability margin "
             f"{margin:.3e}, calls whose experts differ card vs CPU: {differ}")
+    if int8:
+        # a K or V value within float32 rounding of a code boundary (x * 32
+        # at k + 1/2) may land on the other code card vs CPU: reported
+        differ = sum(int((a != b).sum()) for a, b in zip(codes["cuda"],
+                                                         codes["cpu"]))
+        n_codes = sum(a[:, :, :n + 4].numel() for a in codes["cpu"])
+        log(f"  int8 caches: {differ} of {n_codes} codes differ card vs CPU "
+            f"after the prefill and 4 decode steps")
     if not rel <= 1e-3:
         raise SystemExit(f"{arch}: whole-model logits disagree between card "
                          "and CPU")
@@ -969,9 +1290,17 @@ def main() -> int:
     # line keeps 3a's counts for them and reads rglru_scan's from 3c
     hybrid = run_phase("3c", phase_serve_hybrid)
     launches["rglru_scan"] = hybrid["rglru_scan"]
-    # 3d launches both attention kernels at head dim 128; the kernels line
+    # 3d-3g launch both attention kernels at head dim 128; the kernels line
     # keeps 3a's counts for them
     run_phase("3d", phase_serve_moe)
+    # at 3a's 200 requests/s the modeled prefill of an 8 B model outlasts
+    # the gaps, so no prefix is registered before the requests that share
+    # it are routed (0 reused); at 100 a follow-up resumes a 32-token
+    # prefix, as in 3a and 3f (the modeled clock reads the config only:
+    # tests/test_torch_dense.py checks both streams on the CPU)
+    run_phase("3e", phase_serve_dense, "minitron-8b", "3e", rps=100.0)
+    run_phase("3f", phase_serve_dense, "starcoder2-3b", "3f")
+    run_phase("3g", phase_qwen_int8)
     run_phase("4a", phase_whole_model, "smollm-360m")
     run_phase("4b", phase_whole_model, "mamba2-1.3b")
     # float32 at full depth would be 38.5 GB on each side: depth 5 is one
@@ -982,6 +1311,13 @@ def main() -> int:
     # float32 at full depth would be 65.5 GB on each side: depth 4 is the
     # dense first layer and 3 MoE layers, ~8.8 GB a side
     run_phase("4d", phase_whole_model, "deepseek-moe-16b", n_layers=4)
+    # the dense family at cut depth, float32 on each side: minitron-8b at 2
+    # layers (its untied 256000-row embed and unembed are 8.4 GB of the
+    # 10.3), starcoder2-3b at 4, qwen1.5-32b at 2 (10.6 GB) with int8
+    # caches on both sides
+    run_phase("4e", phase_whole_model, "minitron-8b", n_layers=2)
+    run_phase("4f", phase_whole_model, "starcoder2-3b", n_layers=4)
+    run_phase("4g", phase_whole_model, "qwen1.5-32b", n_layers=2, int8=True)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

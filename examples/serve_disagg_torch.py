@@ -19,15 +19,19 @@ prefix index, then a burst of follow-ups extends them. For an SSM
 what snapshot reuse needs: the index keeps the whole per-sequence state at
 the end of each prefill (for the hybrid, with the local-attention layers'
 last ``window`` keys), and only an exact prefix resumes it. The dense
-decoder (``--arch smollm-360m``) and the mixture of experts
-(``--arch deepseek-moe-16b``: a dense first layer, then routed and shared
-experts) keep paged K/V, and any page-aligned prefix resumes.
+decoders (``--arch smollm-360m``, ``minitron-8b``, ``starcoder2-3b``,
+``qwen1.5-32b``; the last does not fit one card at full depth in bf16) and
+the mixture of experts (``--arch deepseek-moe-16b``: a dense first layer,
+then routed and shared experts) keep paged K/V, and any page-aligned
+prefix resumes.
 
     PYTHONPATH=src python examples/serve_disagg_torch.py --arch mamba2-1.3b
     PYTHONPATH=src python examples/serve_disagg_torch.py \
         --arch recurrentgemma-9b --full
     PYTHONPATH=src python examples/serve_disagg_torch.py \
         --arch deepseek-moe-16b --full
+    PYTHONPATH=src python examples/serve_disagg_torch.py \
+        --arch starcoder2-3b --full
     PYTHONPATH=src python examples/serve_disagg_torch.py --full   # full width
     # on a machine without a card: --device cpu (plain PyTorch path)
 """

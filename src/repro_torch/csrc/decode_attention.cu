@@ -6,7 +6,9 @@
 // (Pallas, body `_kernel`). Same function: q [B,H,D], k/v [B,S,Hk,D],
 // query head h reads stored KV head kv_map[h] (clamped to [0, Hk); without
 // a map Hk = H and h reads h), lengths [B] int32; a sequence of length 0
-// gives 0; output in the input type.
+// gives 0; output in q's type. K/V are in q's type or int8 codes, whose
+// value is code * kv_scale (the JAX model's int8 KV cache: kv_scale =
+// 1/32, kernels/decode_attention.py::kv_dequant).
 //
 // Bound on the H100: each stored key is read once and used for 4*D flops
 // a query head that shares it. With one to four heads a KV head (smollm)
@@ -46,6 +48,17 @@
 // bfloat16 and float32 take the same design and compute in float32 on the
 // CUDA cores.
 //
+// int8 K/V (the KV cache at one byte an element, which halves the bytes
+// that bind the step): the tiles are copied as they are stored, codes, by
+// the same 16-byte cp.async rows (D bytes a row, D >= 32), and converted to
+// float in registers as each product reads them (load8: 8 codes a 64-bit
+// shared load). The dequant scale, a kernel argument, is not applied per
+// element: it is folded into the staged q (for K: q . (c s) = (q s) . c)
+// and into the output (for V: sum p_j c_j s = s sum p_j c_j), one multiply
+// a query head and an output element instead of one a code. For a
+// power-of-two scale, such as 1/32, both folds are exact in float32. No
+// dequantised copy of the cache is ever made.
+//
 // Plain C interface (bound from Python with ctypes). The caller allocates
 // the output [B,H,D] contiguous and, when n_split > 1, the float32 scratch
 // opart [n_split, B*H, D] and lse [n_split, B*H]. Inputs may be strided
@@ -81,23 +94,25 @@ struct Params {
   long long q_sb, q_sh;
   Strides ks, vs;
   float scale;
+  float kv_scale;      // the value of one K/V unit: 1, or an int8 code's
   int chunk, n_split, n_hb, cap;
   int stages;          // 2: a K/V ring when a chunk holds several tiles
 };
 
-template <typename E, int D>
+// KV: the element type of the K/V rows (float, bfloat16 or int8 codes)
+template <typename KV, int D>
 struct Layout {
   static constexpr int kDC = D / 8;               // 8-column pieces of a row
   static constexpr int kHG = kThreads / kDC;      // thread groups in P V
   static constexpr int kCap = kHG * kSlots;       // query heads a block
-  static constexpr int kRS = D + 16 / sizeof(E);  // shared row stride
+  static constexpr int kRS = D + 16 / sizeof(KV); // shared row stride
 };
 
 // shared memory of a block holding `cap` query heads of H
-template <typename E, int D>
+template <typename KV, int D>
 __host__ __device__ constexpr int smem_bytes(int cap, int H, int stages) {
-  using L = Layout<E, D>;
-  return 2 * stages * kBK * L::kRS * static_cast<int>(sizeof(E))  // K, V
+  using L = Layout<KV, D>;
+  return 2 * stages * kBK * L::kRS * static_cast<int>(sizeof(KV))  // K, V
          + L::kCap * D * 4                // q (scaled), later the P V sums
          + cap * (kBK + 1) * 4            // scores, then probabilities
          + 3 * cap * 4                    // running max, sum, rescale
@@ -125,29 +140,41 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
     x[2 * i + 1] = f.y;
   }
 }
+// 8 int8 codes (8-byte aligned) as floats: each byte shifted to the top of
+// a 32-bit word and shifted back arithmetically, which sign-extends it
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i] = static_cast<float>(static_cast<int>(u.x << (24 - 8 * i)) >> 24);
+    x[4 + i] =
+        static_cast<float>(static_cast<int>(u.y << (24 - 8 * i)) >> 24);
+  }
+}
 
 // rows [k0, k0 + kBK) of one head into shared memory; rows at or past k_hi
 // are zero-filled (their probability is 0, and 0 * 0 stays 0)
-template <typename E, int D>
-__device__ __forceinline__ void load_tile(E* dst, const E* base,
+template <typename KV, int D>
+__device__ __forceinline__ void load_tile(KV* dst, const KV* base,
                                           long long stride, int k0,
                                           int k_hi) {
-  constexpr int kPieces = D * static_cast<int>(sizeof(E)) / 16;
-  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
+  constexpr int kPieces = D * static_cast<int>(sizeof(KV)) / 16;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(KV));
   for (int c = threadIdx.x; c < kBK * kPieces; c += kThreads) {
     const int r = c / kPieces, col = (c % kPieces) * kPer;
     const bool ok = k0 + r < k_hi;
-    cp_async16(dst + r * Layout<E, D>::kRS + col,
+    cp_async16(dst + r * Layout<KV, D>::kRS + col,
                base + (ok ? (k0 + r) * stride : 0) + col, ok);
   }
 }
 
-template <typename E, int D>
+// E: the type of q and the output; KV: that of the K/V rows
+template <typename E, typename KV, int D>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
-  using L = Layout<E, D>;
+  using L = Layout<KV, D>;
   constexpr int kRS = L::kRS, kDC = L::kDC, kHG = L::kHG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* kv_s = reinterpret_cast<E*>(smem_raw);     // stage s: K at 2s, V at 2s+1
+  KV* kv_s = reinterpret_cast<KV*>(smem_raw);   // stage s: K at 2s, V at 2s+1
   float* q_s = reinterpret_cast<float*>(kv_s + 2 * p.stages * kBK * kRS);
   float* s_s = q_s + L::kCap * D;                           // [cap][kBK+1]
   float* m_s = s_s + p.cap * (kBK + 1);
@@ -167,13 +194,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   const int k_lo = split * p.chunk;
   const int k_hi = min(k_lo + p.chunk, len);
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
-  const E* kb = static_cast<const E*>(p.k) + b * p.ks.b + kvh * p.ks.h;
-  const E* vb = static_cast<const E*>(p.v) + b * p.vs.b + kvh * p.vs.h;
+  const KV* kb = static_cast<const KV*>(p.k) + b * p.ks.b + kvh * p.ks.h;
+  const KV* vb = static_cast<const KV*>(p.v) + b * p.vs.b + kvh * p.vs.h;
   auto issue = [&](int t) {       // tile t into stage t % stages: 2 groups
-    E* k_dst = kv_s + 2 * (t % p.stages) * kBK * kRS;
-    load_tile<E, D>(k_dst, kb, p.ks.s, k_lo + t * kBK, k_hi);
+    KV* k_dst = kv_s + 2 * (t % p.stages) * kBK * kRS;
+    load_tile<KV, D>(k_dst, kb, p.ks.s, k_lo + t * kBK, k_hi);
     cp_async_commit();
-    load_tile<E, D>(k_dst + kBK * kRS, vb, p.vs.s, k_lo + t * kBK, k_hi);
+    load_tile<KV, D>(k_dst + kBK * kRS, vb, p.vs.s, k_lo + t * kBK, k_hi);
     cp_async_commit();
   };
   if (n_tiles > 0) issue(0);
@@ -199,7 +226,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   }
 
   const E* qb = static_cast<const E*>(p.q) + b * p.q_sb;
-  const float scale2 = p.scale * kLog2e;
+  // base-2 scores; K's unit folded in (q . (c s) = (q s) . c)
+  const float scale2 = p.scale * kLog2e * p.kv_scale;
   for (int i = tid; i < G * kDC; i += kThreads) {   // 8 elements a load
     const int g = i / kDC, c = i % kDC;
     float x[8];
@@ -240,8 +268,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = k_lo + t * kBK;
-    const E* k_s = kv_s + 2 * (t % p.stages) * kBK * kRS;
-    const E* v_s = k_s + kBK * kRS;
+    const KV* k_s = kv_s + 2 * (t % p.stages) * kBK * kRS;
+    const KV* v_s = k_s + kBK * kRS;
     __syncthreads();              // q_s, or the reads of the stage, done
     // one stage: this tile's copy now; two: the next tile's, into the
     // stage the last tile used
@@ -263,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     {
       const int j = tid % kBK, hs = tid / kBK;
       const bool valid = k0 + j < k_hi;
-      const E* krow = k_s + j * kRS;
+      const KV* krow = k_s + j * kRS;
       int g = hs;
       for (; g + 3 * kHS < G; g += 4 * kHS) {
         float dot[4] = {0.f, 0.f, 0.f, 0.f};
@@ -376,12 +404,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     float x = 0.f;
     for (int k = 0; k < n_kg; ++k) x += sums[(k * G + g) * D + d];
     const float l = l_s[g];
+    const float y = x / l * p.kv_scale;          // V's unit folded in
     const long long r = static_cast<long long>(b) * p.H + heads[g];
     if (p.n_split == 1) {
-      store(static_cast<E*>(p.o) + r * D + d, l > 0.f ? x / l : 0.f);
+      store(static_cast<E*>(p.o) + r * D + d, l > 0.f ? y : 0.f);
     } else {
       const long long pr = split * R + r;
-      if (l > 0.f) p.opart[pr * D + d] = x / l;
+      if (l > 0.f) p.opart[pr * D + d] = y;
       if (d == 0) p.lse[pr] = l > 0.f ? m_s[g] + log2f(l) : -INFINITY;
     }
   }
@@ -389,33 +418,43 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
 
 constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
 
-template <typename E, int D>
+template <typename E, typename KV, int D>
 cudaError_t launch(Params p, cudaStream_t stream) {
   // the ring where a chunk holds several tiles and two stages fit
-  p.stages = p.chunk > kBK && smem_bytes<E, D>(p.cap, p.H, 2) <= kMaxSmem
+  p.stages = p.chunk > kBK && smem_bytes<KV, D>(p.cap, p.H, 2) <= kMaxSmem
                  ? 2 : 1;
-  const int smem = smem_bytes<E, D>(p.cap, p.H, p.stages);
+  const int smem = smem_bytes<KV, D>(p.cap, p.H, p.stages);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_kernel<E, KV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.n_split, p.Hk, p.B * p.n_hb);
-  decode_kernel<E, D><<<grid, kThreads, smem, stream>>>(p);
+  decode_kernel<E, KV, D><<<grid, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
   return launch_combine<E>(p.opart, p.lse, p.o, p.n_split,
                            static_cast<long long>(p.B) * p.H, D, stream);
 }
 
-template <typename E>
+template <typename E, typename KV>
 cudaError_t dispatch_d(int D, const Params& p, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<E, 32>(p, stream);
-    case 64: return launch<E, 64>(p, stream);
-    case 96: return launch<E, 96>(p, stream);
-    case 128: return launch<E, 128>(p, stream);
-    case 256: return launch<E, 256>(p, stream);
+    case 32: return launch<E, KV, 32>(p, stream);
+    case 64: return launch<E, KV, 64>(p, stream);
+    case 96: return launch<E, KV, 96>(p, stream);
+    case 128: return launch<E, KV, 128>(p, stream);
+    case 256: return launch<E, KV, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K/V in q's type, or int8 codes (kv_dtype 2)
+template <typename E>
+cudaError_t dispatch_kv(int dtype, int kv_dtype, int D, const Params& p,
+                        cudaStream_t stream) {
+  if (kv_dtype == dtype) return dispatch_d<E, E>(D, p, stream);
+  if (kv_dtype == 2) return dispatch_d<E, int8_t>(D, p, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -436,25 +475,30 @@ extern "C" int decode_attention_cap(int D) {
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; lengths is a
-// device array of B int32, kv_map one of H int32 or null; opart/lse are the
-// split scratch (null when n_split == 1). cap is the query heads a block
-// holds (<= decode_attention_cap(D)), n_hb = ceil(H / cap). Returns the
-// cudaError_t of the launches.
+// dtype (q and the output): 0 = float32, 1 = bfloat16; kv_dtype (K and V):
+// dtype, or 2 = int8 codes of value code * kv_scale (kv_scale is 1 for K/V
+// in q's type). Strides are in elements; lengths is a device array of B
+// int32, kv_map one of H int32 or null; opart/lse are the split scratch
+// (null when n_split == 1). cap is the query heads a block holds (<=
+// decode_attention_cap(D)), n_hb = ceil(H / cap). Returns the cudaError_t
+// of the launches.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* kv_map, void* o, void* opart, void* lse, int dtype, int B,
-    int S, int H, int Hk, int D, long long q_sb, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, float scale, int chunk, int n_split,
-    int n_hb, int cap, void* stream) {
+    const void* kv_map, void* o, void* opart, void* lse, int dtype,
+    int kv_dtype, int B, int S, int H, int Hk, int D, long long q_sb,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, float scale,
+    float kv_scale, int chunk, int n_split, int n_hb, int cap,
+    void* stream) {
   const Params p{q, k, v, static_cast<const int*>(lengths),
                  static_cast<const int*>(kv_map), o,
                  static_cast<float*>(opart), static_cast<float*>(lse),
                  B, S, H, Hk, q_sb, q_sh, {k_sb, k_ss, k_sh},
-                 {v_sb, v_ss, v_sh}, scale, chunk, n_split, n_hb, cap, 1};
+                 {v_sb, v_ss, v_sh}, scale, kv_scale, chunk, n_split, n_hb,
+                 cap, 1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(D, p, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, st);
+  if (dtype == 0) return dispatch_kv<float>(dtype, kv_dtype, D, p, st);
+  if (dtype == 1)
+    return dispatch_kv<__nv_bfloat16>(dtype, kv_dtype, D, p, st);
   return cudaErrorInvalidValue;
 }

@@ -14,6 +14,12 @@ read once; the chunks' float32 partials are merged by one combine kernel.
 The number of chunks comes from S and the grid's other axes, chosen here
 from Python ints: neither ``lengths`` nor ``kv_map`` is read on the host.
 
+K/V may be int8 codes (the model's int8 KV cache) whose value is ``code *
+kv_scale``: the kernel reads the codes themselves, one byte an element,
+and converts them in registers; no dequantised copy of the cache is made
+on the card. The plain version dequantises first (``kv_dequant``, which
+the model's ``blocks._kv_load`` calls too), then calls the oracle.
+
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. ``decode_attention.launches`` counts wrapper calls that launched.
 """
@@ -32,18 +38,40 @@ from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_plain",
-           "decode_attention_cost"]
+           "decode_attention_cost", "kv_dequant"]
 
 TILE = 64               # keys a tile of the kernel; a chunk is a multiple
+#: K/V dtypes the kernel takes (q's, or int8), by their code in the C
+#: interface
+KV_DTYPES = {**DTYPES, torch.int8: 2}
+
+
+def _check_kv_scale(k: torch.Tensor, kv_scale: Optional[float]) -> None:
+    if (k.dtype == torch.int8) != (kv_scale is not None):
+        raise ValueError(f"decode_attention: K/V of {k.dtype} with kv_scale "
+                         f"{kv_scale}: int8 codes need the value of one "
+                         "code, and only they take one")
+
+
+def kv_dequant(x: torch.Tensor, kv_scale: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The values of int8 K/V codes in ``dtype``: ``code * kv_scale`` in
+    float32, cast (exact in bfloat16 and float32 for the model's scale of
+    1/32)."""
+    return (x.float() * kv_scale).to(dtype)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, *,
                            scale: Optional[float] = None,
-                           kv_map: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """The plain PyTorch version: K/V expanded through ``kv_map``, then the
-    oracle of ``ref.py``."""
+                           kv_map: Optional[torch.Tensor] = None,
+                           kv_scale: Optional[float] = None) -> torch.Tensor:
+    """The plain PyTorch version: int8 K/V dequantised to q's dtype
+    (``kv_dequant``), K/V expanded through ``kv_map``, then the oracle of
+    ``ref.py``."""
+    _check_kv_scale(k, kv_scale)
+    if kv_scale is not None:
+        k, v = (kv_dequant(x, kv_scale, q.dtype) for x in (k, v))
     return decode_attention_ref(q, expand_kv(k, kv_map), expand_kv(v, kv_map),
                                 lengths, scale=scale)
 
@@ -74,8 +102,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                       L, L, L, L, L, L, L, L, ctypes.c_float, I, I, I, I, P]
+        F = ctypes.c_float
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                       L, L, L, L, L, L, L, L, F, F, I, I, I, I, P]
         fn.restype = ctypes.c_int
         lib.decode_attention_cap.argtypes = [I]
         lib.decode_attention_cap.restype = ctypes.c_int
@@ -109,13 +138,15 @@ def split_plan(B: int, H: int, Hk: int, S: int, *, cap: int, sms: int,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *,
                      scale: Optional[float] = None,
-                     kv_map: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: [B,H,D]; k/v: [B,S,Hk,D], the stored KV heads; lengths: [B] valid
-    cache slots; ``kv_map``: int32 [H] on q's device, query head -> KV head
-    (None: Hk == H)."""
+                     kv_map: Optional[torch.Tensor] = None,
+                     kv_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,D]; k/v: [B,S,Hk,D], the stored KV heads, in q's dtype or
+    int8 codes worth ``code * kv_scale`` (``kv_scale`` is given for int8
+    and only then); lengths: [B] valid cache slots; ``kv_map``: int32 [H]
+    on q's device, query head -> KV head (None: Hk == H)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, scale=scale,
-                                      kv_map=kv_map)
+                                      kv_map=kv_map, kv_scale=kv_scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     B, H, D = q.shape
@@ -125,9 +156,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, "
                          f"{tuple(lengths.shape)}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype not in (q.dtype, torch.int8) \
+            or v.dtype != k.dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}; the kernel takes float32 or bfloat16")
+                         f"{v.dtype}; the kernel takes q in float32 or "
+                         "bfloat16 and K/V in q's dtype or int8")
+    _check_kv_scale(k, kv_scale)
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
     if not (k.device == q.device and v.device == q.device):
@@ -153,10 +187,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if kv_map is None else kv_map.data_ptr(), out.data_ptr(),
         None if opart is None else opart.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        DTYPES[q.dtype], B, S, H, Hk, D,
+        DTYPES[q.dtype], KV_DTYPES[k.dtype], B, S, H, Hk, D,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), float(scale),
+        1.0 if kv_scale is None else float(kv_scale),
         chunk, n_split, n_hb, min(_cap(D), H), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "

@@ -13,11 +13,14 @@ Usage:
         --arch recurrentgemma-9b --full --policy mfs
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --full --policy mfs
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \
+        --full --policy mfs
     # on a machine without a card: --device cpu (plain PyTorch path)
 
-``--arch`` takes any of the port's configs: smollm-360m (dense),
-mamba2-1.3b (SSM), recurrentgemma-9b (hybrid) and deepseek-moe-16b
-(mixture of experts).
+``--arch`` takes any of the port's configs: smollm-360m, minitron-8b,
+starcoder2-3b and qwen1.5-32b (dense; qwen1.5-32b does not fit one card at
+full depth in bf16, its smoke config serves anywhere), mamba2-1.3b (SSM),
+recurrentgemma-9b (hybrid) and deepseek-moe-16b (mixture of experts).
 """
 from __future__ import annotations
 

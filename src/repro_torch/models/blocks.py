@@ -11,8 +11,11 @@ and the RG-LRU recurrent block of RecurrentGemma.
     runs with ``lengths = pos + 1``.
 A local-attention layer (``window > 0``) masks keys ``window`` or more
 positions back, keeps only the last ``window`` positions in its prefill
-cache and decodes into a ring buffer (see ``attn_apply``). int8 KV waits
-for the slice whose model needs it. ``ssd_apply`` and ``rglru_apply`` have
+cache and decodes into a ring buffer (see ``attn_apply``). A decode cache
+may hold K/V as int8 codes (``Model.init_cache(kv_dtype=torch.int8)``):
+decode stores the new token through ``_kv_store`` and the decode kernel
+reads the codes; a suffix prefill refuses such a cache (see ``_kv_load``).
+``ssd_apply`` and ``rglru_apply`` have
 the same three modes over a per-sequence ``{"conv", "state"}`` cache (see
 ``ssd_apply``'s docstring). ``moe_apply`` is the JAX package's
 single-device MoE: tokens sorted by expert through grouped products for a
@@ -29,12 +32,39 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from ..kernels.decode_attention import kv_dequant
 from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
 from .sharding import HEAD_PAD, pad_to_multiple
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "ffn_init",
            "ffn_apply", "MoE", "moe_init", "moe_apply", "SSD", "ssd_init",
            "ssd_apply", "RGLRU", "rglru_init", "rglru_apply"]
+
+
+# ------------------------------------------------------------- int8 KV cache
+_KV_QSCALE = 32.0       # static symmetric scale: codes of 1/32, range ~ +/-4
+
+
+def _kv_store(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a cache of ``dtype`` holds it: for int8 the JAX model's
+    codes, ``clamp(round(x * 32), -127, 127)`` in float32 (``torch.round``
+    rounds half to even, as ``jnp.round``)."""
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(x.float() * _KV_QSCALE),
+                           -127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def _kv_load(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The values of a cache leaf in ``dtype``: int8 codes times 1/32
+    (``kv_dequant``, the one dequantisation, which the decode kernel's plain
+    version calls), anything else as it is. Decode does not call it: the
+    decode kernel reads the codes and their scale. A suffix prefill refuses
+    an int8 cache; the JAX model concatenates its codes with the new keys
+    unscaled, reading each code as a value."""
+    if x.dtype == torch.int8:
+        return kv_dequant(x, 1.0 / _KV_QSCALE, dtype)
+    return x
 
 
 @dataclass(frozen=True)
@@ -136,15 +166,22 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         # as JAX's dynamic_update_slice does, so dead slots stay inside
         slot = pos % S if window else pos.clamp(max=S - 1)
         rows = torch.arange(B, device=x.device)
-        ck[rows, slot] = k[:, 0, :n_store].to(ck.dtype)
-        cv[rows, slot] = v[:, 0, :n_store].to(cv.dtype)
+        ck[rows, slot] = _kv_store(k[:, 0, :n_store], ck.dtype)
+        cv[rows, slot] = _kv_store(v[:, 0, :n_store], cv.dtype)
         lengths = (pos + 1).clamp(max=S)
+        kv_scale = 1.0 / _KV_QSCALE if ck.dtype == torch.int8 else None
         out = kops.decode_attention(q[:, 0], ck, cv, lengths,
-                                    kv_map=p.kv_map)[:, None]
+                                    kv_map=p.kv_map,
+                                    kv_scale=kv_scale)[:, None]
         new_cache = {"k": ck, "v": cv}
     elif cache is not None:
         # suffix prefill over a reused prefix holding positions [pos-Pk, pos):
         # masks depend only on position differences, so q_offset = Pk
+        if cache["k"].dtype == torch.int8:
+            raise ValueError(
+                "suffix prefill over an int8 KV cache: the prefix would "
+                "join the new keys as codes, not values; int8 caches are "
+                "decode caches (Model.init_cache)")
         Pk = cache["k"].shape[1]
         k_all = torch.cat([cache["k"], k], 1)
         v_all = torch.cat([cache["v"], v], 1)

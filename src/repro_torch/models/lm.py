@@ -9,7 +9,7 @@ Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
   init(generator)                      -> fills the parameters in place
   prefill(batch, caches=None, pos=0)   -> (logits_last [B,1,Vp], caches)
   decode_step(caches, tok, pos)        -> (logits [B,1,Vp], caches)
-  init_cache(batch_size, max_len)      -> zero caches
+  init_cache(batch_size, max_len, kv_dtype=None) -> zero caches
 
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
 then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
@@ -191,9 +191,12 @@ class Model(nn.Module):
     def _blocks(self, si: int) -> nn.ModuleList:
         return getattr(self, f"seg{si}")
 
-    def _run_segments(self, x, mode: str, caches=None, pos=0):
+    def _run_segments(self, x, mode: str, caches=None, pos=0, sink=None):
         """Returns (x, caches: list per segment). Decode writes into the
-        given caches and returns them."""
+        given caches and returns them. With ``sink``, each layer's cache
+        goes to ``sink(si, i, c, cache)`` as the layer returns it (segment
+        ``si``, sublayer ``i``, block ``c``) and none is kept: caches is
+        None."""
         new_caches = []
         for si, seg in enumerate(self.segments):
             outs: List[List[Dict[str, torch.Tensor]]] = [[] for _ in seg.kinds]
@@ -204,7 +207,12 @@ class Model(nn.Module):
                         ci = {n: t[c] for n, t in caches[si][i]["mix"].items()}
                     x, nc = layer(x, cfg=self.cfg, mode=mode, cache=ci,
                                   pos=pos)
-                    outs[i].append(nc)
+                    if sink is None:
+                        outs[i].append(nc)
+                    else:
+                        sink(si, i, c, nc)
+            if sink is not None:
+                continue
             if mode == "decode":
                 new_caches.append(caches[si])
             else:
@@ -212,7 +220,7 @@ class Model(nn.Module):
                     {"mix": {n: torch.stack([o[n] for o in per_layer])
                              for n in per_layer[0]}}
                     for per_layer in outs])
-        return x, new_caches
+        return x, (None if sink is not None else new_caches)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ln_f(x, self.cfg.norm_eps)
@@ -225,13 +233,17 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, Any], caches=None, pos: int = 0):
+    def prefill(self, batch: Dict[str, Any], caches=None, pos: int = 0,
+                sink=None):
         """Full prefill, or *suffix* prefill resuming from a reused prefix
-        cache (``caches`` from a prefill of the first ``pos`` tokens)."""
+        cache (``caches`` from a prefill of the first ``pos`` tokens). With
+        ``sink``, each layer's cache is handed to ``sink(si, i, c, cache)``
+        before the next layer runs and the caches returned are None, so a
+        long prompt's caches of every layer are never held at once."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = self.embed[tokens.long()]
         x, caches = self._run_segments(x, "prefill", caches=caches,
-                                       pos=int(pos))
+                                       pos=int(pos), sink=sink)
         return self._logits(x[:, -1:]), caches
 
     @torch.no_grad()
@@ -245,13 +257,26 @@ class Model(nn.Module):
         return self._logits(x), caches
 
     # ---------------------------------------------------------- cache specs
-    def init_cache(self, batch_size: int, max_len: int):
-        """Zero caches. Attention stores the REAL kv-head count, in the
-        model's dtype (which the decode kernel requires; int8 KV comes with
-        its slice), over ``min(max_len, window)`` slots for a local layer;
-        the SSM and RG-LRU blocks store their conv window in the model's
-        dtype and their state in float32."""
+    def init_cache(self, batch_size: int, max_len: int,
+                   kv_dtype: Optional[torch.dtype] = None):
+        """Zero caches. Attention stores the REAL kv-head count (a padded
+        MHA model's padded heads are no-ops: decode crops them on insert)
+        in ``kv_dtype`` (default: the model's dtype; ``torch.int8`` for
+        codes of 1/32, as the JAX model's ``init_cache``), over ``min(max_len,
+        window)`` slots for a local layer; the SSM and RG-LRU blocks store
+        their conv window in the model's dtype and their state in float32.
+
+        int8 is refused for a model with SSM or RG-LRU layers: the JAX model
+        stores their conv windows in ``kv_dtype`` too, and its SSD and
+        RG-LRU blocks concatenate the int8 window with new values unscaled,
+        reading each code as a value."""
         cfg = self.cfg
+        kv_dtype = kv_dtype or self.dtype
+        if kv_dtype == torch.int8 and any(
+                kind != "attn" for seg in self.segments
+                for kind, _, _ in seg.kinds):
+            raise ValueError(f"{cfg.name}: an int8 cache holds attention "
+                             "K/V only; this model has SSM or RG-LRU layers")
 
         def zeros(count, shape, dtype=self.dtype):
             return torch.zeros((count, batch_size) + shape, dtype=dtype,
@@ -272,7 +297,8 @@ class Model(nn.Module):
                     "state": zeros(count, (w,), torch.float32)}}
             S = min(max_len, window) if window else max_len
             shape = (S, cfg.n_kv, AttnDims.of(cfg).hd)
-            return {"mix": {n: zeros(count, shape) for n in ("k", "v")}}
+            return {"mix": {n: zeros(count, shape, kv_dtype)
+                            for n in ("k", "v")}}
 
         return [[one(kind, window, seg.count) for kind, _, window in seg.kinds]
                 for seg in self.segments]

@@ -279,6 +279,144 @@ def test_decode_kernel_kv_map_on_card(kv, S, D, dtype):
     assert torch.all(got[0] == 0)                    # length 0 gives 0
 
 
+# the rest of the dense family at full width: starcoder2-3b's 24 heads
+# padded to 32 over 2 KV heads (min(h // 12, 1): groups of 12 and 20, the
+# second with the 8 padded no-op heads) and qwen1.5-32b's 40 MHA heads
+# padded to 48, over the 48 stored heads of a prefill or the 40 real ones
+# of an ``init_cache`` cache (the kernel clamps heads 40-47 to 39)
+DENSE_MAPS = {"starcoder2": (2, [min(h // 12, 1) for h in range(32)]),
+              "qwen48": (48, list(range(48))),
+              "qwen40": (40, list(range(48)))}
+
+
+def _dense_kv(dev, g, B, S, Hk, D, kv_dtype, tdt):
+    """K/V in q's dtype, or int8 codes over the whole range and the scale of
+    the model's int8 cache."""
+    if kv_dtype == "int8":
+        return tuple(torch.randint(-127, 128, (B, S, Hk, D), generator=g,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(2)) + (1 / 32,)
+    return tuple(_kv(dev, g, B, S, Hk, D, tdt)) + (None,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["starcoder2", "qwen40"])
+@pytest.mark.parametrize("S", [40, 1000, 1024])
+@pytest.mark.parametrize("kv_dtype", ["int8", "same"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_dense_maps_on_card(kv, S, kv_dtype, dtype):
+    """B = 8 at head dim 128 through the dense family's maps, K/V in q's
+    dtype or int8 codes (read by the kernel, dequantised by the plain
+    version); S = 1000 is not a multiple of the 64-key tile, S = 40 is
+    shorter than one; lengths 0, 1, S and ragged ones."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S + len(kv))
+    tdt = DTYPES[dtype]
+    Hk, m = DENSE_MAPS[kv]
+    kv_map = torch.tensor(m, dtype=torch.int32, device=dev)
+    q = torch.randn(8, len(m), 128, generator=g, device=dev).to(tdt)
+    k, v, kv_scale = _dense_kv(dev, g, 8, S, Hk, 128, kv_dtype, tdt)
+    lengths = torch.tensor([0, 1, S, S - 24, 17, 65, S // 2, S - 1],
+                           dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths, kv_map=kv_map,
+                           kv_scale=kv_scale)
+    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map,
+                                  kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    assert torch.all(got[0] == 0)                    # length 0 gives 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 8])
+def test_decode_kernel_int8_at_32k_on_card(B):
+    """qwen1.5-32b's decode at 32768 slots, float32 q over int8 codes of
+    N(0, 1) values (outputs ~0.01 over the long rows, so float32's 2e-5 is
+    what holds them): the split plan cuts S into 2 chunks of 16384 at B = 8
+    and 7 of 4736 at B = 2; lengths full, 1, off the tile and either side
+    of a chunk's end."""
+    dev = _card()
+    S = 32768
+    g = torch.Generator(device=dev).manual_seed(B)
+    Hk, m = DENSE_MAPS["qwen40"]
+    kv_map = torch.tensor(m, dtype=torch.int32, device=dev)
+    q = torch.randn(B, len(m), 128, generator=g, device=dev)
+    k, v = (torch.clamp(torch.round(torch.randn(
+        B, S, Hk, 128, generator=g, device=dev) * 32), -127, 127).to(
+            torch.int8) for _ in range(2))
+    lengths = torch.tensor([S, 20037, 1, S - 24, 16385, 16383, 4681, S // 2]
+                           if B == 8 else [4737, 9471], dtype=torch.int32,
+                           device=dev)
+    got = decode_attention(q, k, v, lengths, kv_map=kv_map, kv_scale=1 / 32)
+    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map,
+                                  kv_scale=1 / 32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=_tol("float32"),
+                               rtol=_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 96, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_int8_every_head_dim_on_card(D, dtype):
+    """int8 K/V at every other head dim (rows of D bytes, 16-byte copies)
+    through smollm's 16 -> 5 map."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(D)
+    tdt = DTYPES[dtype]
+    Hk, kv_map = _map(dev, "gqa16to5")
+    q = torch.randn(8, 16, D, generator=g, device=dev).to(tdt)
+    k, v, kv_scale = _dense_kv(dev, g, 8, 333, Hk, D, "int8", tdt)
+    lengths = torch.tensor([0, 1, 333, 300, 17, 65, 64, 128],
+                           dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths, kv_map=kv_map,
+                           kv_scale=kv_scale)
+    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map,
+                                  kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,T,S,qoff", [
+    ("starcoder2", 512, 512, 0), ("starcoder2", 64, 544, 480),
+    ("qwen48", 300, 300, 0), ("qwen48", 32, 288, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_dense_maps_on_card(kv, T, S, qoff, dtype):
+    """Prefill and a suffix at head dim 128 through starcoder2's 32 -> 2
+    map and qwen's padded MHA (48 heads over the prefill's 48)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(T + S)
+    tdt = DTYPES[dtype]
+    Hk, m = DENSE_MAPS[kv]
+    kv_map = torch.tensor(m, dtype=torch.int32, device=dev)
+    q = torch.randn(1, T, len(m), 128, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, 1, S, Hk, 128, tdt)
+    kw = dict(causal=True, q_offset=qoff, kv_map=kv_map)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_int8_without_its_scale_on_card():
+    """No quiet reading of codes as values, and no int8 path for a mix."""
+    dev = _card()
+    q = torch.zeros(2, 16, 128, device=dev, dtype=torch.bfloat16)
+    k8 = torch.zeros(2, 64, 16, 128, device=dev, dtype=torch.int8)
+    kb = k8.to(torch.bfloat16)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    for k, v, scale in ((k8, k8, None), (kb, kb, 1 / 32), (k8, kb, 1 / 32),
+                        (k8.float(), k8.float(), None)):
+        with pytest.raises(ValueError):
+            decode_attention(q, k, v, lengths, kv_scale=scale)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_take_on_card():
     """No fallback: a map of the wrong length, dtype or device, a head dim

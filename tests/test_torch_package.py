@@ -19,10 +19,13 @@ from repro_torch.configs import SMOKES
 SRC = Path(__file__).resolve().parent.parent / "src"
 COPIES = ([f"core/{p.name}" for p in sorted((SRC / "repro/core").glob("*.py"))]
           + [f"netsim/{n}.py" for n in ("__init__", "events", "fluid",
-                                        "topology")]
+                                        "topology", "toy")]
+          + [f"simcluster/{n}.py" for n in ("__init__", "trace", "metrics",
+                                            "papermodels", "sim")]
           + ["configs/base.py", "configs/smollm_360m.py",
              "configs/mamba2_1_3b.py", "configs/recurrentgemma_9b.py",
-             "configs/deepseek_moe_16b.py"])
+             "configs/deepseek_moe_16b.py", "configs/minitron_8b.py",
+             "configs/starcoder2_3b.py", "configs/qwen1_5_32b.py"])
 
 
 def _modules():
