@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
      KV-head map: 16 heads over 16 (deepseek-moe-16b's MHA at head dim
      128 among them), smollm's 16 over 5, recurrentgemma's 16 over 1,
      starcoder2-3b's 32 over 2, qwen1.5-32b's 48 over 40 at S = 32768 with
-     int8 K/V and bf16 K/V.
+     int8 K/V and bf16 K/V, qwen2-vl-7b's 32 over 4 (1v, 2v), and
+     seamless-m4t-medium's encoder and cross-attention over 64 frames
+     without a mask (1e, 1x) and its cross-attention at decode (2x).
      Times are device times: ``REPS`` calls captured in one CUDA graph and
      replayed, so the host's launch cost is left out; the eager time per
      call (host included) is printed beside;
@@ -43,14 +45,23 @@ Phases, in order; any failure exits non-zero before a result is printed:
      full-width qwen1.5-32b at depth 16 for 8 sequences of ~32k tokens
      from an int8 KV cache (42.9 GB; in bf16 it would not fit), read by
      the decode kernel as codes, timed against the bf16 step at the batch
-     that fits and held to the JAX model's int8-vs-bf16 criterion;
+     that fits and held to the JAX model's int8-vs-bf16 criterion; 3h
+     serves deepseek-v3 at full width cut to depth 4 (MLA over paged
+     latents, 256 routed experts top-8; the MLA and MoE spans' device
+     shares, peak memory, the smallest top-8/top-9 routing margin), 3i
+     full-width full-depth qwen2-vl-7b on 3a's stream at 100 requests/s and
+     one prefill from input embeddings, 3j full-width full-depth
+     seamless-m4t-medium on an agent stream with 64 source frames a request
+     (a snapshot resumed; flash launches by mask, decode launches);
   4. whole model — each model in float32 through the kernels on the card
      and through the plain versions on the CPU: prefill of a prompt (256
      tokens; 2112 for recurrentgemma-9b, cut to depth 5; deepseek-moe-16b
-     cut to depth 4; minitron-8b and qwen1.5-32b to 2, starcoder2-3b to 4)
-     and 4 decode steps on the caches admitted as ``DecodeBatch.add``
-     admits them (for qwen1.5-32b int8 caches on both sides, the codes
-     that differ counted), logits compared.
+     cut to depth 4; minitron-8b and qwen1.5-32b to 2, starcoder2-3b to 4;
+     deepseek-v3 to depth 2 with its experts cut out, qwen2-vl-7b to 2 from
+     input embeddings, seamless to 2 + 2 layers with 64 source frames) and
+     4 decode steps on the caches admitted as ``DecodeBatch.add`` admits
+     them (for qwen1.5-32b int8 caches on both sides, the codes that
+     differ counted), logits compared.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -155,6 +166,10 @@ def bound_ms(flops, nbytes, dtype, peak=None):
 # ------------------------------------------------------------------ phase 2
 #: starcoder2-3b's query-head -> KV-head map: min(h // 12, 1) over 32 heads
 STARCODER2_MAP = [min(h // 12, 1) for h in range(32)]
+#: qwen2-vl-7b's: 28 heads padded to 32 over 4, min(h // 7, 3)
+QWEN2VL_MAP = [min(h // 7, 3) for h in range(32)]
+#: seamless-m4t-medium's encoder frames in 3j (``src_len_for(256)``)
+SEAMLESS_SRC = 64
 #: qwen1.5-32b's decode cells: 8 sequences of a 32768-slot cache
 QWEN_S = 32768
 QWEN_LENGTHS = [1, QWEN_S, QWEN_S - 1, QWEN_S - 24, 17, 20037, QWEN_S // 2 + 1,
@@ -507,6 +522,23 @@ def phase_kernels():
                    128, H=32, kv_heads=2, kv_map=STARCODER2_MAP)
         decode_case(dtype, H=32, D=128, kv_heads=2, kv_map=STARCODER2_MAP,
                     label="2s starcoder2-3b")
+        # qwen2-vl-7b's attention (1v, 2v): 28 heads padded to 32 over 4 KV
+        # heads in groups of 7 (the last serves 11, 4 of them padded no-ops)
+        flash_case("1v qwen2-vl-7b D=128 T=S=512 32->4", dtype, 512, 512,
+                   128, H=32, kv_heads=4, kv_map=QWEN2VL_MAP)
+        decode_case(dtype, H=32, D=128, kv_heads=4, kv_map=QWEN2VL_MAP,
+                    label="2v qwen2-vl-7b")
+        # seamless-m4t-medium's (1e, 1x, 2x): 16 MHA heads of 64; the
+        # encoder over 64 frames, a 256-token prefill's cross-attention over
+        # them (both non-causal), and 8 sequences' cross-attention at decode
+        # over all 64 (the decode kernel, every length at S)
+        flash_case(f"1e seamless encoder D=64 T=S={SEAMLESS_SRC} "
+                   "non-causal", dtype, SEAMLESS_SRC, SEAMLESS_SRC, 64,
+                   causal=False)
+        flash_case(f"1x seamless cross T=256 S={SEAMLESS_SRC} non-causal",
+                   dtype, 256, SEAMLESS_SRC, 64, causal=False)
+        decode_case(dtype, D=64, S=SEAMLESS_SRC,
+                    lengths=[SEAMLESS_SRC] * 8, label="2x seamless cross")
     # qwen1.5-32b's decode step at 32k (2q8, 2q16): 40 MHA heads padded to
     # 48 over the 40 KV heads of an init_cache cache (the map is the
     # identity over 48; the kernel clamps the padded heads to the last),
@@ -904,11 +936,12 @@ def phase_serve_moe():
     return launches
 
 
-def phase_serve_dense(arch, label, rps=200.0):
-    """3e, 3f: a dense model at full width and depth behind DisaggServer on
-    3a's stream (its requests at ``rps``), both attention kernels through
+def phase_serve_dense(arch, label, rps=200.0, embeds=False):
+    """3e, 3f, 3i: a dense model at full width and depth behind DisaggServer
+    on 3a's stream (its requests at ``rps``), both attention kernels through
     its padded head map, and at least one request's suffix prefill over a
-    reused 32-token paged prefix."""
+    reused 32-token paged prefix. ``embeds``: then one prefill from 256
+    input embeddings, the stub frontend's shape."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import make_requests
@@ -937,6 +970,138 @@ def phase_serve_dense(arch, label, rps=200.0):
         ("decode_attention", ("decodekernel",)),
         ("split-KV combine", ("combinekernel",)),
         ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "xmma", "cutlass"))])
+    if embeds:
+        g = torch.Generator(device=model.device).manual_seed(1)
+        emb = torch.randn(1, 256, cfg.d_model, generator=g,
+                          device=model.device) / cfg.d_model ** 0.5
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        lg, _ = model.prefill({"inputs_embeds": emb})
+        torch.cuda.synchronize()
+        log(f"  prefill from inputs_embeds {tuple(emb.shape)}: "
+            f"{time.perf_counter() - t0:.3f} s, flash_attention launches "
+            f"{flash_attention.launches}, next token "
+            f"{int(lg[0, -1].argmax())}")
+        assert flash_attention.launches == cfg.n_layers
+        assert torch.isfinite(lg[..., :cfg.vocab]).all()
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+    return launches
+
+
+MLA_DEPTH = 4       # of 61: deepseek-v3's 3 dense layers and 1 MoE layer
+
+
+def phase_serve_mla():
+    """3h: deepseek-v3 at full width, depth cut to ``MLA_DEPTH`` (the MTP
+    layer carried, never read), on 3a's stream: absorbed MLA over paged
+    latents (plain products: no Pallas kernel computes MLA), 256 routed
+    experts top-8 and a shared one."""
+    import dataclasses
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import blocks, lm
+
+    cfg = dataclasses.replace(_arch("deepseek-v3-671b"), n_layers=MLA_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    model = _model(cfg, torch.bfloat16)
+
+    def gb(mods):
+        return sum(p.numel() * p.element_size() for m in mods
+                   for p in m.parameters()) / 1e9
+    log(f"[3h] serve-deepseek-v3-depth4: deepseek-v3-671b at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads, q rank "
+        f"{cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, rope "
+        f"{cfg.rope_head_dim}, nope {cfg.nope_head_dim}, v "
+        f"{cfg.v_head_dim}, {cfg.n_experts} routed experts top-{cfg.top_k} "
+        f"of width {cfg.d_expert} + {cfg.n_shared} shared, vocab "
+        f"{cfg.vocab}), depth cut 61 -> {cfg.n_layers} ({cfg.first_dense} "
+        f"dense + {cfg.n_layers - cfg.first_dense} MoE); bf16, seed 0, "
+        f"weights {gb([model]):.2f} GB, of which the MTP head (never read "
+        f"by serving) {gb([model.mtp_layer, model.mtp_proj]):.2f} GB; behind "
+        "DisaggServer(mfs), 2 prefill units, 8 decode slots x 1024; 3a's "
+        "stream: 16 requests, half on 4 Zipf-hot 32-token prefixes")
+    reqs = make_requests(cfg, 16, 200.0, seed=0, mean_prompt=256, max_new=8)
+    with RoutingLog() as routes:
+        _, res, _ = serve_counted(model, reqs, ())
+    # the follow-up's suffix prefill ran over paged latents (c, kr)
+    assert any(r.reused_tokens >= 32 for r in res), "no latent prefix reused"
+    log(f"  routing: {len(routes.calls)} router calls, smallest "
+        f"top-{cfg.top_k}/top-{cfg.top_k + 1} probability margin "
+        f"{min(m for _, m in routes.calls):.3e}")
+    rows, busy = serve_profiled(
+        model, reqs, spans={"mla (absorbed attention)": (lm, "mla_apply"),
+                            "moe prefill (grouped)": (blocks, "_moe_local"),
+                            "moe decode (token gather)": (
+                                blocks, "_moe_token_gather")})
+    device_shares(rows, busy, [
+        ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
+        ("softmax", ("softmax",)),
+        ("sort (the expert argsort, top-k's)", ("sort",)),
+        ("top-k", ("topk", "radixselect")),
+        ("index, gather, scatter (the decode weight gather among them)",
+         ("index", "gather", "scatter"))])
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+
+
+def phase_serve_encdec():
+    """3j: seamless-m4t-medium at full width and depth on an agent stream
+    whose requests carry ``SEAMLESS_SRC`` seeded source frames (a follow-up
+    its warm prompt's): the encoder and the cross-attention through the
+    flash kernel without a mask, the decoder's self-attention with the
+    causal one, the cross-attention at decode through the decode kernel; a
+    follow-up resumes a warm prompt's snapshot and its cross K/V."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import agent_requests
+
+    torch.cuda.reset_peak_memory_stats()
+    model = _model(_arch("seamless-m4t-medium"), torch.bfloat16)
+    cfg = model.cfg
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[3j] serve-seamless-m4t-medium: full width and depth ("
+        f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab} padded to {model.vocab_padded}; bf16, seed 0, "
+        f"weights {nbytes / 1e9:.2f} GB) behind DisaggServer(mfs), 2 "
+        "prefill units, 8 decode slots x 1024; agent stream: 3 warm "
+        "256-token prompts, 13 follow-ups (60% extend one by 32), "
+        f"{SEAMLESS_SRC} source frames a request")
+    reqs = agent_requests(cfg, 13, seed=0, prompt=256, extend=32, fresh=288,
+                          max_new=8)
+    assert {r.extra["src_embeds"].shape for r in reqs} == \
+        {(1, SEAMLESS_SRC, cfg.d_model)}
+    inner, masks = ops.attention, {"causal": 0, "non-causal": 0}
+
+    def counted(*a, **kw):
+        masks["causal" if kw.get("causal", True) else "non-causal"] += 1
+        return inner(*a, **kw)
+    ops.attention = counted
+    try:
+        launches, res, steps = serve_counted(
+            model, reqs, (flash_attention, decode_attention))
+    finally:
+        ops.attention = inner
+    full = sum(r.reused_tokens == 0 for r in res)
+    log(f"  flash_attention calls by mask: {masks}; {full} full prefills, "
+        f"{len(res) - full} over a snapshot")
+    assert any(r.reused_tokens >= 256 for r in res), "no snapshot resumed"
+    L, E = cfg.n_layers, cfg.enc_layers
+    assert masks["causal"] == L * len(reqs), masks
+    # the encoder runs for a full prefill only: a resumed one reads the
+    # snapshot's cross K/V
+    assert masks["non-causal"] == E * full + L * len(reqs), masks
+    assert launches["flash_attention"] == sum(masks.values()), launches
+    # each step: self- and cross-attention in every decoder layer
+    assert launches["decode_attention"] >= 2 * L * steps, launches
+    rows, busy = serve_profiled(model, reqs)
+    device_shares(rows, busy, [
+        ("flash_attention", ("flashmma", "flashf32")),
+        ("decode_attention", ("decodekernel",)),
+        ("split-KV combine", ("combinekernel",)),
+        ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "xmma", "cutlass"))])
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         " GB")
     return launches
@@ -956,8 +1121,8 @@ def prefill_into(model, tokens, caches, slot):
 
     def sink(si, i, c, nc):
         for name, leaf in caches[si][i]["mix"].items():
-            leaf[c, slot, :n] = _kv_store(nc[name][0, :, :leaf.shape[3]],
-                                          leaf.dtype)
+            leaf[c, slot, :n] = _kv_store(
+                nc["mix"][name][0, :, :leaf.shape[3]], leaf.dtype)
     logits, _ = model.prefill({"tokens": np.asarray(tokens)[None]},
                               sink=sink)
     return logits
@@ -1164,9 +1329,14 @@ def _admit_int8(model, caches, n):
     return out
 
 
-def phase_whole_model(arch, n_layers=None, n=256, int8=False):
+def phase_whole_model(arch, n_layers=None, n=256, int8=False, changes=None,
+                      embeds=False, src_len=0):
     """``int8``: the decode steps run over int8 caches on both sides, and the
-    codes that differ card vs CPU are counted."""
+    codes that differ card vs CPU are counted. ``changes``: other config
+    fields cut (an encoder-decoder's ``enc_layers``, ``n_experts``).
+    ``embeds``: the prompt and the decode steps are input embeddings (seeded,
+    N(0, 1/d)); ``src_len``: the prefill carries that many seeded source
+    frames."""
     import contextlib
     import dataclasses
 
@@ -1174,28 +1344,43 @@ def phase_whole_model(arch, n_layers=None, n=256, int8=False):
 
     cfg = _arch(arch)
     depth = "full"
-    if n_layers is not None:
-        cfg, depth = dataclasses.replace(cfg, n_layers=n_layers), "cut"
+    if n_layers is not None or changes:
+        cfg = dataclasses.replace(cfg, **(changes or {}),
+                                  **({} if n_layers is None
+                                     else {"n_layers": n_layers}))
+        depth = f"cut: {dict(n_layers=n_layers, **(changes or {}))}"
     log(f"[4] whole model {arch}, float32: kernels on the card vs plain on "
         "the CPU")
     gpu = _model(cfg, torch.float32)
     log(f"  depth {cfg.n_layers} layers ({depth}), d_model {cfg.d_model}, "
-        f"prompt {n} tokens")
+        f"prompt {n} {'embeddings' if embeds else 'tokens'}"
+        f"{f', {src_len} source frames' if src_len else ''}, "
+        f"{sum(p.numel() for p in gpu.parameters()) / 1e9:.2f} B parameters")
     cpu = build_model(cfg, device="cpu", dtype=torch.float32)
     cpu.load_state_dict(gpu.state_dict())
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, n + 4))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, size=(1, n + 4))
+    batch = {"tokens": toks[:, :n]}
+    feeds = [toks[:, n + s:n + s + 1] for s in range(4)]
+    if embeds:
+        emb = (rng.normal(size=(1, n + 4, cfg.d_model))
+               / np.sqrt(cfg.d_model)).astype(np.float32)
+        batch = {"inputs_embeds": emb[:, :n]}
+        feeds = [emb[:, n + s:n + s + 1] for s in range(4)]
+    if src_len:
+        batch["src_embeds"] = rng.normal(
+            size=(1, src_len, cfg.d_model)).astype(np.float32)
     diffs, scale = [], 0.0
     outs, routes, codes = {}, {}, {}
     for name, m in (("cuda", gpu), ("cpu", cpu)):
         t0 = time.perf_counter()
         with (RoutingLog() if cfg.n_experts
               else contextlib.nullcontext()) as routes[name]:
-            lg, caches = m.prefill({"tokens": toks[:, :n]})
+            lg, caches = m.prefill(batch)
             steps = [lg]
             caches = (_admit_int8 if int8 else _admit)(m, caches, n)
             for s in range(4):
-                lg, caches = m.decode_step(caches, toks[:, n + s:n + s + 1],
-                                           n + s)
+                lg, caches = m.decode_step(caches, feeds[s], n + s)
                 steps.append(lg)
         # the real vocab only: padded logits are -1e30 on both sides
         outs[name] = [x[..., :cfg.vocab].float().cpu() for x in steps]
@@ -1301,6 +1486,15 @@ def main() -> int:
     run_phase("3e", phase_serve_dense, "minitron-8b", "3e", rps=100.0)
     run_phase("3f", phase_serve_dense, "starcoder2-3b", "3f")
     run_phase("3g", phase_qwen_int8)
+    # the last three families: deepseek-v3 at full width cut to depth 4
+    # (53.4 GB in bf16; depth 5 would be 76.5 GB), qwen2-vl-7b at full
+    # width and depth on 3a's stream at 100 requests/s (at 200 its modeled
+    # prefills outlast the gaps, as minitron-8b's), then one prefill from
+    # input embeddings; seamless-m4t-medium at full width and depth
+    run_phase("3h", phase_serve_mla)
+    run_phase("3i", phase_serve_dense, "qwen2-vl-7b", "3i", rps=100.0,
+              embeds=True)
+    run_phase("3j", phase_serve_encdec)
     run_phase("4a", phase_whole_model, "smollm-360m")
     run_phase("4b", phase_whole_model, "mamba2-1.3b")
     # float32 at full depth would be 38.5 GB on each side: depth 5 is one
@@ -1318,6 +1512,17 @@ def main() -> int:
     run_phase("4e", phase_whole_model, "minitron-8b", n_layers=2)
     run_phase("4f", phase_whole_model, "starcoder2-3b", n_layers=4)
     run_phase("4g", phase_whole_model, "qwen1.5-32b", n_layers=2, int8=True)
+    # 4h: MLA at full width with the experts cut out (n_experts 0: both
+    # layers and the MTP layer dense), depth 2, 3.71 B parameters, 14.8 GB
+    # a side in float32 (at depth 4 with the experts, 107 GB); 4i:
+    # qwen2-vl-7b at depth 2 from input embeddings; 4j: seamless at 2
+    # encoder + 2 decoder layers with 64 source frames
+    run_phase("4h", phase_whole_model, "deepseek-v3-671b", n_layers=2,
+              changes={"n_experts": 0})
+    run_phase("4i", phase_whole_model, "qwen2-vl-7b", n_layers=2,
+              embeds=True)
+    run_phase("4j", phase_whole_model, "seamless-m4t-medium", n_layers=2,
+              changes={"enc_layers": 2}, src_len=SEAMLESS_SRC)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

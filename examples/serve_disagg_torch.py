@@ -21,9 +21,14 @@ the end of each prefill (for the hybrid, with the local-attention layers'
 last ``window`` keys), and only an exact prefix resumes it. The dense
 decoders (``--arch smollm-360m``, ``minitron-8b``, ``starcoder2-3b``,
 ``qwen1.5-32b``; the last does not fit one card at full depth in bf16) and
-the mixture of experts (``--arch deepseek-moe-16b``: a dense first layer,
-then routed and shared experts) keep paged K/V, and any page-aligned
-prefix resumes.
+the mixtures of experts (``--arch deepseek-moe-16b``: a dense first layer,
+then routed and shared experts; ``--arch deepseek-v3-671b``: MLA, whose
+latents page, three dense layers, then 256 routed experts, which fits one
+card only as its smoke config) and the VLM backbone (``--arch
+qwen2-vl-7b``, on text tokens) keep paged K/V, and any page-aligned prefix
+resumes. The encoder-decoder (``--arch seamless-m4t-medium``) keeps
+snapshots, whose cross K/V an extension reuses: its requests carry seeded
+source embeddings, an extension its warm prompt's.
 
     PYTHONPATH=src python examples/serve_disagg_torch.py --arch mamba2-1.3b
     PYTHONPATH=src python examples/serve_disagg_torch.py \
@@ -32,6 +37,8 @@ prefix resumes.
         --arch deepseek-moe-16b --full
     PYTHONPATH=src python examples/serve_disagg_torch.py \
         --arch starcoder2-3b --full
+    PYTHONPATH=src python examples/serve_disagg_torch.py \
+        --arch seamless-m4t-medium --full
     PYTHONPATH=src python examples/serve_disagg_torch.py --full   # full width
     # on a machine without a card: --device cpu (plain PyTorch path)
 """

@@ -15,12 +15,18 @@ Usage:
         --arch deepseek-moe-16b --full --policy mfs
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \
         --full --policy mfs
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --full --policy mfs
     # on a machine without a card: --device cpu (plain PyTorch path)
 
-``--arch`` takes any of the port's configs: smollm-360m, minitron-8b,
+``--arch`` takes any of the port's ten configs: smollm-360m, minitron-8b,
 starcoder2-3b and qwen1.5-32b (dense; qwen1.5-32b does not fit one card at
-full depth in bf16, its smoke config serves anywhere), mamba2-1.3b (SSM),
-recurrentgemma-9b (hybrid) and deepseek-moe-16b (mixture of experts).
+full depth in bf16, its smoke config serves anywhere), qwen2-vl-7b (the VLM
+backbone, served on text tokens), mamba2-1.3b (SSM), recurrentgemma-9b
+(hybrid), deepseek-moe-16b and deepseek-v3-671b (mixtures of experts, the
+second with MLA; deepseek-v3-671b fits one card only as its smoke config or
+cut in depth) and seamless-m4t-medium (encoder-decoder: each request
+carries seeded source embeddings, ``src_len_for`` frames of them).
 """
 from __future__ import annotations
 
@@ -35,15 +41,34 @@ from ..device import resolve_device
 from ..models.lm import build_model
 from ..serving import DisaggConfig, DisaggServer, ServeRequest
 
-__all__ = ["make_requests", "agent_requests", "run"]
+__all__ = ["make_requests", "agent_requests", "run", "src_len_for"]
+
+
+def src_len_for(seq_len: int) -> int:
+    """Encoder frames of the stubbed speech frontend for a ``seq_len``-token
+    cell, as the JAX package's ``launch/specs.py::_src_len``."""
+    return max(16, min(4096, seq_len // 4))
+
+
+def _sources(cfg, seed: int, src_len: int):
+    """Seeded source embeddings [1, src_len, d] for an encoder-decoder's
+    requests (None for any other model), from their own generator so that
+    the token streams do not depend on them."""
+    if not cfg.enc_layers:
+        return lambda: None
+    rng = np.random.default_rng(seed + 1)
+    return lambda: {"src_embeds": rng.normal(
+        size=(1, src_len, cfg.d_model)).astype(np.float32)}
 
 
 def make_requests(cfg, n: int, rps: float, seed: int = 0,
                   reuse_rate: float = 0.5, mean_prompt: int = 48,
                   max_new: int = 4):
     """Synthetic request stream with Zipf-hot shared prefixes (the paper's
-    agent-workload shape at toy scale)."""
+    agent-workload shape at toy scale). An encoder-decoder's requests each
+    carry their own source of ``src_len_for(mean_prompt)`` frames."""
     rng = np.random.default_rng(seed)
+    source = _sources(cfg, seed, src_len_for(mean_prompt))
     prefixes = [rng.integers(0, cfg.vocab, size=(32,)) for _ in range(4)]
     pmf = np.array([1.0 / (i + 1) ** 1.6 for i in range(4)])
     pmf /= pmf.sum()
@@ -59,7 +84,8 @@ def make_requests(cfg, n: int, rps: float, seed: int = 0,
         else:
             toks = rng.integers(0, cfg.vocab, size=(ln,))
         out.append(ServeRequest(rid=i, arrival=float(arrivals[i]),
-                                tokens=toks, max_new=max_new))
+                                tokens=toks, max_new=max_new,
+                                extra=source()))
     return out
 
 
@@ -70,19 +96,26 @@ def agent_requests(cfg, n: int, seed: int = 0, prompt: int = 96,
     ``n`` requests from 0.15 s at 1 ms gaps, 60% of them a warm prompt
     extended by ``extend`` fresh tokens and the rest ``fresh``-token prompts.
     The extensions resume a whole warm prompt: what an SSM's snapshot cache
-    (exact-prefix reuse only) can serve."""
+    (exact-prefix reuse only) can serve. An encoder-decoder's warm prompts
+    and fresh ones each carry their own source of ``src_len_for(prompt)``
+    frames, and an extension keeps its warm prompt's."""
     rng = np.random.default_rng(seed)
+    source = _sources(cfg, seed, src_len_for(prompt))
     warm = [rng.integers(0, cfg.vocab, size=(prompt,)) for _ in range(3)]
-    reqs = [ServeRequest(rid=i, arrival=i * 0.05, tokens=p, max_new=max_new)
+    reqs = [ServeRequest(rid=i, arrival=i * 0.05, tokens=p, max_new=max_new,
+                         extra=source())
             for i, p in enumerate(warm)]
     for i in range(n):
         if rng.uniform() < 0.6:
-            toks = np.concatenate([warm[rng.integers(3)],
+            j = rng.integers(3)
+            toks = np.concatenate([warm[j],
                                    rng.integers(0, cfg.vocab, size=(extend,))])
+            extra = reqs[j].extra
         else:
             toks = rng.integers(0, cfg.vocab, size=(fresh,))
+            extra = source()
         reqs.append(ServeRequest(rid=3 + i, arrival=0.15 + i * 1e-3,
-                                 tokens=toks, max_new=max_new))
+                                 tokens=toks, max_new=max_new, extra=extra))
     return reqs
 
 

@@ -1,6 +1,7 @@
-"""Decoder blocks: GQA attention (full or local), the SwiGLU FFN, the
-mixture-of-experts FFN (routed and shared experts), the Mamba2 (SSD) mixer
-and the RG-LRU recurrent block of RecurrentGemma.
+"""Decoder blocks: GQA attention (full or local), cross-attention over an
+encoder's memory, multi-head latent attention (MLA, DeepSeek-V3), the
+SwiGLU FFN, the mixture-of-experts FFN (routed and shared experts), the
+Mamba2 (SSD) mixer and the RG-LRU recurrent block of RecurrentGemma.
 
 ``attn_apply`` has the JAX package's serving modes:
   * ``prefill`` — full-sequence causal; with ``cache`` a *suffix* prefill
@@ -8,7 +9,11 @@ and the RG-LRU recurrent block of RecurrentGemma.
   * ``decode``  — one token per sequence against a fixed-capacity cache,
     each sequence at its own position (``pos`` is a [B] tensor): the new
     K/V are written in place at each sequence's position and attention
-    runs with ``lengths = pos + 1``.
+    runs with ``lengths = pos + 1``;
+  * ``encode``  — full-sequence bidirectional, no cache (an encoder).
+``mla_apply`` has the prefill and decode modes over a latent cache
+``{"c", "kr"}`` (see its docstring); ``cross_apply`` attends to an
+encoder's memory, or to the cross K/V a cache holds.
 A local-attention layer (``window > 0``) masks keys ``window`` or more
 positions back, keeps only the last ``window`` positions in its prefill
 cache and decodes into a ring buffer (see ``attn_apply``). A decode cache
@@ -23,6 +28,7 @@ prefill, each token through its experts' gathered weights for decode.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
@@ -36,9 +42,10 @@ from ..kernels.decode_attention import kv_dequant
 from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
 from .sharding import HEAD_PAD, pad_to_multiple
 
-__all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "ffn_init",
-           "ffn_apply", "MoE", "moe_init", "moe_apply", "SSD", "ssd_init",
-           "ssd_apply", "RGLRU", "rglru_init", "rglru_apply"]
+__all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "cross_apply",
+           "MLA", "mla_init", "mla_apply", "ffn_init", "ffn_apply", "MoE",
+           "moe_init", "moe_apply", "SSD", "ssd_init", "ssd_apply", "RGLRU",
+           "rglru_init", "rglru_apply"]
 
 
 # ------------------------------------------------------------- int8 KV cache
@@ -189,6 +196,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
                              window=window, kv_map=p.kv_map)
         keep = min(window, Pk + T) if window else Pk + T
         new_cache = {"k": k_all[:, -keep:], "v": v_all[:, -keep:]}
+    elif mode == "encode":
+        out = kops.attention(q, k, v, causal=False, kv_map=p.kv_map)
+        new_cache = None
     else:
         out = kops.attention(q, k, v, causal=True, window=window,
                              kv_map=p.kv_map)
@@ -196,6 +206,144 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         new_cache = {"k": k[:, T - keep:], "v": v[:, T - keep:]}
     y = p.wo(out.reshape(B, T, dims.n_q * dims.hd))
     return y, new_cache
+
+
+def cross_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig,
+                mode: str, memory: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cross-attention of x [B, T, D] over an encoder's ``memory`` [B, S, D],
+    or over the ``xk``/``xv`` [B, S, n_kv, hd] that ``cache`` holds (used in
+    its place whenever it has them, as the JAX model does): no mask, no
+    rope. Returns (y, xk, xv).
+
+    A prefill runs the flash kernel with ``causal=False`` (the function
+    JAX's ``gqa_attention(mask=None)`` computes). Decode is one query per
+    sequence over all S keys: the decode kernel with every length at S,
+    which splits S over the SMs and reads each K/V row once per head group;
+    the flash kernel at T = 1 would fill one of its 64 query rows a
+    block."""
+    B, T, _ = x.shape
+    dims = AttnDims.of(cfg)
+    q = p.wq(x).reshape(B, T, dims.n_q, dims.hd)
+    if cache is not None and "xk" in cache:
+        k, v = cache["xk"], cache["xv"]
+    else:
+        S = memory.shape[1]
+        k = p.wk(memory).reshape(B, S, dims.n_kv, dims.hd)
+        v = p.wv(memory).reshape(B, S, dims.n_kv, dims.hd)
+    if mode == "decode":
+        lengths = torch.full((B,), k.shape[1], dtype=torch.int32,
+                             device=x.device)
+        out = kops.decode_attention(q[:, 0], k, v, lengths,
+                                    kv_map=p.kv_map)[:, None]
+    else:
+        out = kops.attention(q, k, v, causal=False, kv_map=p.kv_map)
+    return p.wo(out.reshape(B, T, dims.n_q * dims.hd)), k, v
+
+
+# ------------------------------------------------ MLA (DeepSeek-V3 attention)
+class MLA(nn.Module):
+    """Multi-head latent attention, named as the JAX ``mla_init`` pytree:
+    the query through a rank-``q_lora_rank`` bottleneck (``wq_a``,
+    ``q_norm``, ``wq_b``: ``nope_head_dim + rope_head_dim`` a head), the
+    latent ``c`` and the one shared rope key from ``wkv_a`` (``kv_norm`` on
+    the latent), and the up-projections ``wk_b``, ``wv_b`` that absorbed
+    attention folds into the query and the output."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        kw = dict(dtype=dtype, device=device)
+        self.wq_a = Dense(d, qr, **kw)
+        self.q_norm = RMSNorm(qr, device=device)
+        self.wq_b = Dense(qr, H * (dn + dr), **kw)
+        self.wkv_a = Dense(d, r + dr, **kw)
+        self.kv_norm = RMSNorm(r, device=device)
+        self.wk_b = Dense(r, H * dn, **kw)
+        self.wv_b = Dense(r, H * dv, **kw)
+        self.wo = Dense(H * dv, d, **kw)
+
+    def init(self, generator: torch.Generator) -> None:
+        for m in (self.wq_a, self.q_norm, self.wq_b, self.wkv_a,
+                  self.kv_norm, self.wk_b, self.wv_b, self.wo):
+            m.init(generator)
+
+
+def mla_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> MLA:
+    return MLA(cfg, dtype=dtype, device=device)
+
+
+def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              pos: Union[int, torch.Tensor] = 0
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, T, D]. Returns (y, new_cache), the cache ``{"c": [B, S,
+    kv_lora_rank], "kr": [B, S, rope_head_dim]}``: the normed latent and the
+    roped shared key of every position.
+
+    Attention is absorbed, in float32 as in JAX: ``q_lat = q_nope W_kb``,
+    scores ``(q_lat c + q_rope kr) / sqrt(dn + dr)``, masked to -1e30, the
+    softmax, ``ctx = w c`` and ``ctx W_vb``, then ``wo``. A suffix prefill
+    puts the reused latent prefix (positions ``pos - Pk`` on) before the new
+    positions and builds new caches. Decode writes each sequence's latent
+    and key in place at its own position ``pos[b]`` (clamped to the last
+    slot, as JAX's ``dynamic_update_slice``) and masks its keys past
+    ``pos[b]``; JAX decodes one sequence at a time with a scalar position.
+    No Pallas kernel computes MLA: these are plain products."""
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    q = p.wq_b(p.q_norm(p.wq_a(x))).reshape(B, T, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv = p.wkv_a(x)                                       # [B, T, r + dr]
+    c_kv = p.kv_norm(kv[..., :r])                         # the latent
+    k_rope = kv[..., r:]                                  # one shared head
+    if mode == "decode":
+        positions = pos.reshape(B, 1)
+    else:
+        positions = pos + torch.arange(T, device=x.device)[None, :]
+    sin, cos = rope(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, :, None], sin, cos)[:, :, 0]
+
+    if mode == "decode":
+        assert cache is not None and T == 1
+        c_all, kr_all = cache["c"], cache["kr"]
+        S = c_all.shape[1]
+        rows = torch.arange(B, device=x.device)
+        slot = pos.clamp(max=S - 1)
+        c_all[rows, slot] = c_kv[:, 0].to(c_all.dtype)
+        kr_all[rows, slot] = k_rope[:, 0].to(kr_all.dtype)
+        k_pos = torch.arange(S, device=x.device)
+        mask = k_pos[None, None, :] <= pos[:, None, None]          # [B,1,S]
+    elif cache is not None:
+        Pk = cache["c"].shape[1]
+        c_all = torch.cat([cache["c"], c_kv], 1)
+        kr_all = torch.cat([cache["kr"], k_rope], 1)
+        k_pos = pos - Pk + torch.arange(Pk + T, device=x.device)
+        mask = (positions[0][:, None] >= k_pos[None, :])[None]     # [1,T,S]
+    else:
+        c_all, kr_all = c_kv, k_rope
+        mask = (positions[0][:, None] >= positions[0][None, :])[None]
+    new_cache = {"c": c_all, "kr": kr_all}
+
+    wk = p.wk_b.w.reshape(r, H, dn).float()
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), wk)  # [B,T,H,r]
+    c32 = c_all.float()
+    logits = (torch.einsum("bthr,bsr->bhts", q_lat, c32)
+              + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                             kr_all.float())) / math.sqrt(dn + dr)
+    logits = torch.where(mask[:, None], logits,
+                         torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhts,bsr->bthr", w, c32)
+    out = torch.einsum("bthr,rhv->bthv", ctx,
+                       p.wv_b.w.reshape(r, H, dv).float())
+    return p.wo(out.to(x.dtype).reshape(B, T, H * dv)), new_cache
 
 
 # ---------------------------------------------------------------- dense FFN

@@ -2,7 +2,8 @@
 
 The JAX tree (``repro.models.lm.Model.init``), given as numpy arrays, maps
 name for name onto the port's parameters; each segment's ``vmap``-stacked
-leading ``count`` axis is unstacked into the segment's ``count`` blocks.
+leading ``count`` axis is unstacked into the segment's ``count`` blocks,
+and so are the stacked layers of ``encoder`` and ``mtp_layer``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,11 @@ def from_jax_params(params: Any, model: Model) -> Model:
             seg, sub, rest = path[0], path[1], ".".join(map(str, path[2:]))
             for c in range(arr.shape[0]):
                 state[f"{seg}.{c}.{sub}.{rest}"] = arr[c]
+        elif path[0] in ("encoder", "mtp_layer"):
+            # (stack, ...) leaf [count, ...] -> stack.<c>...
+            rest = ".".join(map(str, path[1:]))
+            for c in range(arr.shape[0]):
+                state[f"{path[0]}.{c}.{rest}"] = arr[c]
         else:
             state[name] = arr
     own = model.state_dict()

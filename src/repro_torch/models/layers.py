@@ -18,14 +18,23 @@ __all__ = ["Dense", "RMSNorm", "SwiGLU", "normal_", "rmsnorm", "rope",
            "apply_rope", "gqa_attention"]
 
 
+#: float32 values drawn at once by ``normal_``: a larger tensor is drawn
+#: in blocks of its leading axis (deepseek-v3's [256, 7168, 2048] experts
+#: would need 15 GB of float32 beside their 7.5 GB)
+NORMAL_BLOCK = 1 << 30
+
+
 @torch.no_grad()
 def normal_(param: torch.Tensor, generator: torch.Generator,
             scale: float) -> None:
     """Fill ``param`` with N(0, scale^2) drawn in float32 on the generator's
-    device."""
-    x = torch.randn(param.shape, generator=generator,
-                    device=generator.device, dtype=torch.float32)
-    param.copy_(x * scale)
+    device, in blocks of its leading axis of at most ``NORMAL_BLOCK``
+    values (one draw for any tensor that fits in one)."""
+    step = max(1, NORMAL_BLOCK // max(1, param[0].numel()))
+    for r in range(0, param.shape[0], step):
+        x = torch.randn(param[r:r + step].shape, generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        param[r:r + step].copy_(x.mul_(scale))
 
 
 class Dense(nn.Module):

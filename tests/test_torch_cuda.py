@@ -636,3 +636,129 @@ def test_rglru_one_pass_repeats_and_replays_on_card(T):
         torch.cuda.synchronize()
         for a, b in zip(out, want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# the last three families: qwen2-vl-7b's 28 heads padded to 32 over 4 KV
+# heads (min(h // 7, 3): the last KV head serves 11, 4 of them padded);
+# seamless-m4t-medium's 16 MHA heads of 64 attending to encoder frames
+# without a mask (its encoder, and the cross-attention of a prefill and of
+# a decode step)
+VLM_MAP = [min(h // 7, 3) for h in range(32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,qoff", [(512, 512, 0), (48, 560, 512),
+                                      (256, 256, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_qwen2_vl_map_on_card(T, S, qoff, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(T + S)
+    tdt = DTYPES[dtype]
+    kv_map = torch.tensor(VLM_MAP, dtype=torch.int32, device=dev)
+    q = torch.randn(1, T, 32, 128, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, 1, S, 4, 128, tdt)
+    kw = dict(causal=True, q_offset=qoff, kv_map=kv_map)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [40, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_qwen2_vl_map_on_card(S, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S)
+    tdt = DTYPES[dtype]
+    kv_map = torch.tensor(VLM_MAP, dtype=torch.int32, device=dev)
+    q = torch.randn(8, 32, 128, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, 8, S, 4, 128, tdt)
+    lengths = torch.tensor([1, S, S - 24, 17, 65, S // 2, S - 1, 3],
+                           dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths, kv_map=kv_map)
+    want = decode_attention_plain(q, k, v, lengths, kv_map=kv_map)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(64, 64), (256, 64), (1, 64), (300, 17),
+                                 (13, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_without_mask_over_encoder_frames_on_card(T, S, dtype):
+    """The encoder (T = S) and the cross-attention of a prefill (T queries
+    over S frames), no mask, head dim 64, 16 over 16 heads."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(T * 3 + S)
+    tdt = DTYPES[dtype]
+    q = torch.randn(1, T, 16, 64, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, 1, S, 16, 64, tdt)
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [17, 64, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_cross_attention_every_length_at_s_on_card(S, dtype):
+    """The cross-attention of a decode step: 8 sequences, one query each,
+    over all S encoder frames (every length at S)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S)
+    tdt = DTYPES[dtype]
+    q = torch.randn(8, 16, 64, generator=g, device=dev).to(tdt)
+    k, v = _kv(dev, g, 8, S, 16, 64, tdt)
+    lengths = torch.full((8,), S, dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths)
+    want = decode_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen2-vl-7b",
+                                  "seamless-m4t-medium"])
+def test_smoke_model_matches_cpu_on_card(arch):
+    """The smoke model in float32 on the card (kernels) and on the CPU
+    (plain versions), the same weights: a prefill (from input embeddings for
+    qwen2-vl, with 8 source frames for seamless), then 3 decode steps into
+    the caches as ``DecodeBatch.add`` admits them. 1e-4 of the largest
+    logit: float32 on both sides, only the order of summation differs."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import build_model
+    from repro_torch.serving import DecodeBatch
+    dev = _card()
+    cfg = SMOKES[arch]
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    n = 20
+    toks = torch.randint(0, cfg.vocab, (1, n + 3), generator=g)
+    batch = {"tokens": toks[:, :n]}
+    if cfg.family == "vlm":
+        batch = {"inputs_embeds": torch.randn(1, n, cfg.d_model, generator=g)}
+    if cfg.enc_layers:
+        batch["src_embeds"] = torch.randn(1, 8, cfg.d_model, generator=g)
+    outs = []
+    for m in (card, cpu):
+        lg, caches = m.prefill(batch)
+        db = DecodeBatch(m, capacity=n + 4, max_slots=1)
+        db.add(0, caches, n, first_token=0)
+        steps = [lg]
+        for s in range(3):
+            lg, _ = m.decode_step(db._stacked, toks[:, n + s:n + s + 1],
+                                  n + s)
+            steps.append(lg)
+        outs.append(torch.cat([x[..., :cfg.vocab].float().cpu()
+                               for x in steps]))
+    scale = float(outs[1].abs().max())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * scale

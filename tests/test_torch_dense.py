@@ -115,8 +115,9 @@ def test_prefill_sink_hands_over_each_layers_cache(pair):
         (si, i, c) for si, seg in enumerate(tm.segments)
         for c in range(seg.count) for i in range(len(seg.kinds))]
     for si, i, c, nc in got:
-        assert nc.keys() == tc[si][i]["mix"].keys()
-        for name, t in nc.items():
+        assert nc.keys() == tc[si][i].keys() == {"mix"}
+        assert nc["mix"].keys() == tc[si][i]["mix"].keys()
+        for name, t in nc["mix"].items():
             assert torch.equal(t, tc[si][i]["mix"][name][c])
 
 
@@ -264,7 +265,8 @@ class _FullConfig:
 
 
 @pytest.mark.parametrize("name,rps", [("minitron-8b", 100.0),
-                                      ("starcoder2-3b", 200.0)])
+                                      ("starcoder2-3b", 200.0),
+                                      ("qwen2-vl-7b", 100.0)])
 def test_serve_phase_streams_resume_a_prefix(name, rps):
     """The streams the card's full-width serve phases run (16 requests,
     half on 4 Zipf-hot 32-token prefixes, at ``rps``): on the modeled clock

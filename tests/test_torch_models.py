@@ -192,14 +192,22 @@ def test_q_to_kv_map_nonuniform_at_full_width():
 
 
 def test_unsupported_family_raises():
-    """Experts are served now; MLA, encoder-decoder and MTP still raise."""
+    """Every family of the JAX package builds now: experts, MLA,
+    encoder-decoder, MTP, the VLM backbone, every smoke config. What the
+    port still refuses is an int8 cache whose leaves the JAX model would
+    read as codes (MLA's latents, an encoder-decoder's cross K/V)."""
     base = SMOKES["smollm-360m"]
-    for change in (dict(use_mla=True), dict(enc_layers=2), dict(mtp=True),
-                   dict(family="audio")):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(base, **change), device="cpu")
-    build_model(dataclasses.replace(base, n_experts=4, top_k=2),
-                device="cpu")
+    mla = dict(use_mla=True, kv_lora_rank=16, q_lora_rank=32,
+               rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
+    for change in (mla, dict(enc_layers=2), dict(mtp=True),
+                   dict(family="audio"), dict(n_experts=4, top_k=2)):
+        build_model(dataclasses.replace(base, **change), device="cpu")
+    for cfg in SMOKES.values():
+        build_model(cfg, device="cpu")
+    for change, src_len in ((mla, 0), (dict(enc_layers=2), 4)):
+        m = build_model(dataclasses.replace(base, **change), device="cpu")
+        with pytest.raises(ValueError, match="int8"):
+            m.init_cache(1, 8, kv_dtype=torch.int8, src_len=src_len)
 
 
 # ------------------------------------------------------------------ layers

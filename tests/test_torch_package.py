@@ -25,7 +25,9 @@ COPIES = ([f"core/{p.name}" for p in sorted((SRC / "repro/core").glob("*.py"))]
           + ["configs/base.py", "configs/smollm_360m.py",
              "configs/mamba2_1_3b.py", "configs/recurrentgemma_9b.py",
              "configs/deepseek_moe_16b.py", "configs/minitron_8b.py",
-             "configs/starcoder2_3b.py", "configs/qwen1_5_32b.py"])
+             "configs/starcoder2_3b.py", "configs/qwen1_5_32b.py",
+             "configs/deepseek_v3_671b.py", "configs/qwen2_vl_7b.py",
+             "configs/seamless_m4t_medium.py"])
 
 
 def _modules():

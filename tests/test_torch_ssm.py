@@ -401,11 +401,16 @@ def test_full_width_plan_and_ssd_shapes():
 
 
 def test_hybrid_still_raises():
-    """The hybrid family is served now; MLA (a family still to port) is
-    refused."""
+    """Every family is served now, MLA too: ``use_mla`` on the SSM changes
+    nothing (it has no attention layer to replace, in either package), and
+    an int8 cache for its conv windows is still refused."""
     cfg = dataclasses.replace(SMOKES[ARCH], use_mla=True)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    tm = build_model(cfg, device="cpu")
+    jm = jbuild(dataclasses.replace(JSMOKES[ARCH], use_mla=True))
+    assert [(s.count, s.kinds) for s in tm.segments] == \
+        [(s.count, s.kinds) for s in jm.segments] == [(2, (("ssm", False, 0),))]
+    with pytest.raises(ValueError, match="int8"):
+        tm.init_cache(1, 8, kv_dtype=torch.int8)
 
 
 # ------------------------------------------------------------------ serving
