@@ -24,7 +24,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
      without a mask (1e, 1x) and its cross-attention at decode (2x).
      Times are device times: ``REPS`` calls captured in one CUDA graph and
      replayed, so the host's launch cost is left out; the eager time per
-     call (host included) is printed beside;
+     call (host included) is printed beside. The attention backward
+     (``flash_attention_bwd``) is held to its plain version with the
+     forward's row log-sum-exp at full-width smollm-360m's training shape
+     (1g-bwd), starcoder2-3b's 32 over 2, recurrentgemma-9b's window at
+     head dim 256, seamless's unmasked cross-attention and one float32
+     case, each called twice and required bitwise equal, with SDPA's
+     backward as its yardstick;
   3. serve — behind ``DisaggServer``, random weights from seed 0, bf16:
      full-width smollm-360m on 16 requests (flash and decode attention),
      full-width mamba2-1.3b on an agent-style stream whose follow-ups
@@ -61,13 +67,24 @@ Phases, in order; any failure exits non-zero before a result is printed:
      input embeddings, seamless to 2 + 2 layers with 64 source frames) and
      4 decode steps on the caches admitted as ``DecodeBatch.add`` admits
      them (for qwen1.5-32b int8 caches on both sides, the codes that
-     differ counted), logits compared.
+     differ counted), logits compared; 4t: the loss and every parameter's
+     gradient of full-width smollm-360m at depth 2, float32, card vs CPU;
+  5. train — ``repro_torch.launch.train.run`` on full-width full-depth
+     smollm-360m in bf16 (B=8 x 1024 tokens, AdamW, lr 1e-3, warmup 10,
+     seed 0): 6 steps with a checkpoint at 3, a run resumed from it held
+     bitwise to the straight run, 20 steps over one batch whose loss must
+     fall by more than 1.0, then a warm step timed and one profiled (ms a
+     step, tokens a second, peak memory, idle share, the device shares of
+     the attention kernels, the GEMMs and the optimizer); the backward
+     kernel's launches are this run's.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -176,16 +193,24 @@ QWEN_LENGTHS = [1, QWEN_S, QWEN_S - 1, QWEN_S - 24, 17, 20037, QWEN_S // 2 + 1,
                 QWEN_S - 100]
 
 
-def kv_map_of(H, kv_heads):
-    """The query-head -> KV-head map of ``kv_heads`` stored heads, int32 on
-    the card (None when every query head has its own): one head for MQA,
-    else smollm-360m's ``min(h // rep, kv_heads - 1)`` with rep = 3 over 5
-    heads, whose 16th (padded) head joins the last group."""
+def map_list(H, kv_heads, kv_map=None):
+    """``kv_map`` (a list), else the query-head -> KV-head map of
+    ``kv_heads`` stored heads as Python ints (None when every query head
+    has its own): one head for MQA, else smollm-360m's ``min(h // rep,
+    kv_heads - 1)`` with rep = 3 over 5 heads, whose 16th (padded) head
+    joins the last group."""
+    if kv_map is not None:
+        return list(kv_map)
     if kv_heads == H:
         return None
     rep = max(1, (H - 1) // kv_heads) if kv_heads > 1 else H
-    return torch.tensor([min(h // rep, kv_heads - 1) for h in range(H)],
-                        dtype=torch.int32, device="cuda")
+    return [min(h // rep, kv_heads - 1) for h in range(H)]
+
+
+def kv_map_of(H, kv_heads):
+    """``map_list``'s map as the int32 tensor on the card the kernels
+    take."""
+    return map_tensor(H, kv_heads, None)
 
 
 def expanded(x, kv_map):
@@ -199,11 +224,11 @@ def expanded(x, kv_map):
 
 
 def map_tensor(H, kv_heads, kv_map):
-    """``kv_map`` (a list) as the int32 tensor the kernels take, else
-    ``kv_map_of``'s map."""
-    if kv_map is None:
-        return kv_map_of(H, kv_heads)
-    return torch.tensor(kv_map, dtype=torch.int32, device="cuda")
+    """``map_list(H, kv_heads, kv_map)`` as the int32 tensor on the card
+    the kernels take (None for none)."""
+    m = map_list(H, kv_heads, kv_map)
+    return None if m is None else torch.tensor(m, dtype=torch.int32,
+                                               device="cuda")
 
 
 def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
@@ -246,6 +271,85 @@ def flash_case(name, dtype, T, S, D, *, q_offset=0, window=0, causal=True,
                   lambda: flash_attention(q, k, v, **kw),
                   lambda: flash_attention_plain(q, k, v, **kw), lib,
                   flops, nbytes, dtype, err)
+
+
+#: the forward's row log-sum-exp (base e) against the plain one from the
+#: same inputs: float32 sums of the same products in another order, and the
+#: kernel's exp2/log2 approximations, ~1e-6 relative at the phase-2 shapes
+LSE_TOL = 1e-4
+
+
+def bwd_case(name, B, T, S, D, *, H=16, kv_map=None, kv_heads=None,
+             causal=True, window=0, q_offset=0, dtype=torch.bfloat16):
+    """The attention backward kernel against ``flash_attention_bwd_plain``
+    on the same inputs (the forward kernel's output and lse, checked first
+    against the plain lse), called twice and required bitwise equal; its
+    device time, the plain version's, the bound (2.5x the forward's flops
+    over the visible pairs at the dtype's peak, or the bytes of q, k, v, o,
+    dO, dq, dk, dv, lse and delta) and, as a yardstick, the backward of
+    ``scaled_dot_product_attention`` on K/V expanded to the query heads
+    (its forward and backward less its forward, eager)."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_lse_plain)
+    from repro_torch.kernels.ref import attention_mask
+    Hk = kv_heads or H
+    g = torch.Generator(device="cuda").manual_seed(T * 3 + S + D)
+    q = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, Hk, D, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    dout = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
+    host = map_list(H, Hk, kv_map)
+    m = map_tensor(H, Hk, kv_map)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=None,
+              kv_map=m)
+    label = (f"flash_attention_bwd[{name} B={B} T={T} S={S} D={D} "
+             f"{H}->{Hk},{str(dtype)[6:]}]")
+    out, lse = _forward(q, k, v, with_lse=True, **kw)
+    want_lse = flash_attention_lse_plain(q, k, **kw)
+    torch.cuda.synchronize()
+    check(f"{label} lse", lse, want_lse, LSE_TOL)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=host,
+                              **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=host,
+                                **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    err = max(check(f"{label} {n}", a, b, TOL[dtype])
+              for n, a, b in zip(("dq", "dk", "dv"), got, want))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  {label}: two calls bitwise equal: {bitwise}")
+    if not bitwise:
+        raise SystemExit(f"{label}: two calls differ")
+    mask = attention_mask(T, S, causal=causal, window=window,
+                          q_offset=q_offset, device="cuda")
+    pairs = int(mask.sum())              # (query, key) pairs this data needs
+    flops = 2.5 * 4.0 * B * H * D * pairs
+    es = q.element_size()
+    nbytes = (4 * B * T * H * D + 4 * B * S * Hk * D) * es + 2 * B * H * T * 4
+    qt, dot = (x.transpose(1, 2) for x in (q, dout))
+    kt, vt = (expanded(x, m).transpose(1, 2) for x in (k, v))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_kw = (dict(is_causal=True) if causal and not window and
+               q_offset == 0 and T == S else
+               dict(attn_mask=mask) if causal or window else {})
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                                **sdpa_kw)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), leaves, dot)
+    lib_ms = max(0.0, time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd))
+    r = _timed(label, lambda: flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  kv_map_host=host, **kw),
+               lambda: flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                 **kw),
+               None, flops, nbytes, dtype, err, plain_reps=2)
+    r["library_ms"] = lib_ms
+    log(f"    {label}: SDPA backward (fwd+bwd less fwd, eager) "
+        f"{lib_ms:.4f} ms")
+    return r, (q, k, v, kw)
 
 
 def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None, *,
@@ -580,7 +684,35 @@ def phase_kernels():
     rglru_case("decode B=8 T=1 init_state", 8, 1)
     rglru_case("ragged B=3 T=33 W=100 init_state", 3, 33, 100)
     rglru_chain_case()
+    # the attention backward at the training shapes: 1g-bwd is full-width
+    # smollm-360m's train step (B=8, T=1024, 15 heads padded to 16 over 5
+    # KV heads, head dim 64); starcoder2-3b's 32 over 2 in groups of 12 and
+    # 20 at head dim 128 (the most uneven sum over a KV head's query
+    # heads); recurrentgemma-9b's window of 2048 at head dim 256 over one
+    # KV head; seamless-m4t-medium's cross-attention without a mask
+    r, (q, k, v, kw) = bwd_case("1g-bwd smollm-360m", 8, 1024, 1024, 64,
+                                kv_heads=5)
+    main["flash_attention_bwd"] = r
+    fwd_lse_timing(q, k, v, kw)
+    bwd_case("1s-bwd starcoder2-3b", 2, 1024, 1024, 128, H=32, kv_heads=2,
+             kv_map=STARCODER2_MAP)
+    bwd_case("1r-bwd recurrentgemma-9b window=2048", 1, 2112, 2112, 256,
+             kv_heads=1, window=2048)
+    bwd_case("1x-bwd seamless cross", 8, 256, SEAMLESS_SRC, 64,
+             causal=False)
+    bwd_case("1f-bwd float32 smollm-360m", 2, 256, 256, 64, kv_heads=5,
+             dtype=torch.float32)
     return main
+
+
+def fwd_lse_timing(q, k, v, kw):
+    """The forward kernel's device time at 1g-bwd's shapes with the row
+    log-sum-exp written (the train path) and without it (serving)."""
+    from repro_torch.kernels.flash_attention import _forward
+    with_lse = graph_ms(lambda: _forward(q, k, v, with_lse=True, **kw))
+    without = graph_ms(lambda: _forward(q, k, v, with_lse=False, **kw))
+    log(f"    flash_attention forward at 1g-bwd's shapes: with lse "
+        f"{with_lse:.4f} ms, without {without:.4f} ms")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1426,6 +1558,206 @@ def phase_whole_model(arch, n_layers=None, n=256, int8=False, changes=None,
     return rel
 
 
+# ---------------------------------------------------------- phases 4t and 5
+#: full-width smollm-360m's training batch (phase 5)
+TRAIN_B, TRAIN_T = 8, 1024
+
+
+def phase_train_grads(n_layers=2, B=2, T=256):
+    """4t: the loss and every parameter's gradient of full-width
+    smollm-360m cut to ``n_layers``, float32, through the kernels on the
+    card (the attention forward and backward) and through the plain
+    versions on the CPU: the same weights from seed 0, the same batch."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(_arch("smollm-360m"), n_layers=n_layers)
+    log(f"[4t] gradients of smollm-360m at full width, depth {n_layers}, "
+        f"float32, B={B} T={T}: kernels on the card vs plain on the CPU")
+    gpu = _model(cfg, torch.float32)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict(gpu.state_dict())
+    batch = synthetic_batch(cfg, B, T, seed=0, step=0, device="cuda")
+    grads, losses = {}, {}
+    for name, m in (("cuda", gpu), ("cpu", cpu)):
+        m.requires_grad_(True)
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        loss = m.loss({k: v.to(m.device) for k, v in batch.items()})
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {n: p.grad.float().cpu() for n, p in
+                       m.named_parameters()}
+        if name == "cuda":
+            torch.cuda.synchronize()
+            log(f"  cuda: attention launches forward "
+                f"{flash_attention.launches}, backward "
+                f"{flash_attention_bwd.launches}")
+            assert flash_attention.launches == n_layers
+            assert flash_attention_bwd.launches == n_layers
+    # float32 on both sides, TF32 off: only the order of summation differs
+    # (cuBLAS vs the CPU GEMM, the kernels' online softmax and blocked
+    # backward vs the plain versions), ~1e-6 relative per op; each
+    # gradient is held to 1e-3 of its own largest value, as the whole-model
+    # logits of phase 4 are: a gradient that autograd lost (a kernel's
+    # output taken as a constant) or a wrong mask or map moves it by O(1)
+    worst, worst_name = 0.0, None
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for n, want in grads["cpu"].items():
+        top = float(want.abs().max())
+        assert top > 0, f"{n}: zero gradient on the CPU"
+        rel = float((grads["cuda"][n] - want).abs().max()) / top
+        if rel > worst:
+            worst, worst_name = rel, n
+    rel_loss = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"  loss card {losses['cuda']:.6f} cpu {losses['cpu']:.6f} "
+        f"(relative {rel_loss:.2e}, tol 1e-5); {len(grads['cpu'])} "
+        f"parameters' gradients, the largest difference over the "
+        f"gradient's largest value {worst:.3e} ({worst_name}; tol 1e-3)")
+    if not (rel_loss <= 1e-5 and worst <= 1e-3):
+        raise SystemExit("smollm-360m: gradients disagree between card "
+                         "and CPU")
+    del gpu, cpu
+    return worst
+
+
+def phase_train(steps=6, ckpt_at=3):
+    """5: ``repro_torch.launch.train.run`` on full-width full-depth
+    smollm-360m in bf16, B=8, T=1024, lr 1e-3, warmup 10, seed 0: ``steps``
+    steps with a checkpoint at ``ckpt_at`` into a temp dir, then a run
+    resumed from it to ``steps``, held to the straight run's parameters;
+    then 20 steps over one repeated batch, whose loss must fall by more
+    than 1.0 (the JAX package's test_train_loss_decreases); then one warm
+    step timed and one under ``torch.profiler``. Returns the launch counts
+    of the straight run."""
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training import trainer
+
+    cfg = _arch("smollm-360m")
+    log(f"[5] train: full-width full-depth smollm-360m (bf16, seed 0), "
+        f"B={TRAIN_B} T={TRAIN_T}, lr 1e-3, warmup 10, AdamW")
+    kw = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_T, lr=1e-3, warmup=10,
+              seed=0, log_every=1, device="cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        straight, losses = launch.run("smollm-360m", steps=steps,
+                                      ckpt_dir=ckpt, ckpt_every=ckpt_at, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_bwd": flash_attention_bwd.launches}
+        log(f"  straight run: {steps} steps in {wall:.2f} s (first step "
+            f"included), losses {['%.4f' % x for x in losses]}, launches "
+            f"{launches}")
+        assert all(np.isfinite(losses)) and len(losses) == steps
+        assert launches["flash_attention"] == steps * cfg.n_layers, launches
+        assert launches["flash_attention_bwd"] == steps * cfg.n_layers, \
+            launches
+        # the straight run also saved at ``steps``: drop that checkpoint,
+        # so that the resume starts from ``ckpt_at``
+        shutil.rmtree(os.path.join(ckpt, f"step_{steps:08d}"))
+        resumed, more = launch.run("smollm-360m", steps=steps, ckpt_dir=ckpt,
+                                   ckpt_every=0, resume=True, **kw)
+        assert len(more) == steps - ckpt_at and all(np.isfinite(more))
+        diff = max(float((a.detach().float() - b.detach().float()).abs()
+                         .max()) for a, b in zip(straight.params.values(),
+                                                 resumed.params.values()))
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(straight.params.values(),
+                          resumed.params.values()))
+        log(f"  resumed at step {ckpt_at}: losses "
+            f"{['%.4f' % x for x in more]} (straight "
+            f"{['%.4f' % x for x in losses[ckpt_at:]]}); final parameters "
+            f"bitwise equal to the straight run's: {bitwise}, largest "
+            f"difference {diff:.3e}")
+        if not bitwise:
+            raise SystemExit("phase 5: the resumed run's parameters differ "
+                             "from the straight run's")
+        del straight, resumed
+        gc_cuda()
+
+    # 20 steps over one repeated batch: the loss falls
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    opt = AdamWConfig(lr=1e-3, warmup=10)
+    state = init_train_state(model, torch.Generator("cuda").manual_seed(0),
+                             opt)
+    step_fn = make_train_step(model, opt)
+    batch = launch.synthetic_batch(cfg, TRAIN_B, TRAIN_T, 0, 0)
+    fixed = []
+    for _ in range(20):
+        state, metrics = step_fn(state, batch)
+        fixed.append(float(metrics["loss"]))
+    log(f"  20 steps over one batch: losses {['%.3f' % x for x in fixed]}")
+    assert fixed[-1] < fixed[0] - 1.0, (fixed[0], fixed[-1])
+
+    # warm steps: the time a step, then one under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        state, metrics = step_fn(state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_B * TRAIN_T
+    log(f"  warm step {ms:.2f} ms ({reps} steps, host clock to a sync), "
+        f"{tokens / ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB "
+        f"(weights, AdamW moments, activations, the float32 logits and "
+        f"their gradient)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    inner = trainer.adamw_update
+
+    def spanned(*a, **k):
+        with record_function("optimizer"):
+            return inner(*a, **k)
+    trainer.adamw_update = spanned
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = step_fn(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+    finally:
+        trainer.adamw_update = inner
+    averages = prof.key_averages()
+    rows = [e for e in averages if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key != "optimizer"]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    log(f"  one warm step traced: device busy {busy * 1e3:.2f} ms | idle "
+        f"share {1 - busy / (ms / 1e3):.3f} of the untraced step's "
+        f"{ms:.2f} ms; top kernels by device time:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
+            f"{e.count:6d} calls  {e.key[:90]}")
+    device_shares(rows, busy, [
+        ("attention forward (flash_mma_kernel)", ("flashmma",)),
+        ("attention backward (dkdv, dq, delta kernels)",
+         ("dkdvmma", "dqmma", "deltakernel")),
+        ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90"))])
+    for e in averages:
+        if e.key == "optimizer" and e.device_type == DeviceType.CPU:
+            opt_ms = e.device_time_total / 1e3
+            log(f"  span optimizer (adamw_update): device time of its "
+                f"kernels {opt_ms:.2f} ms, {opt_ms / 1e3 / busy:.3f} of "
+                f"device busy time")
+    del model, state
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1523,9 +1855,20 @@ def main() -> int:
               embeds=True)
     run_phase("4j", phase_whole_model, "seamless-m4t-medium", n_layers=2,
               changes={"enc_layers": 2}, src_len=SEAMLESS_SRC)
+    # training: the gradients card vs CPU, then full-width full-depth
+    # smollm-360m's train steps (the backward kernel's main path; its
+    # launches, and the forward's, are this run's)
+    # the kernels line keeps 3a's count for the forward and reads the
+    # backward's from phase 5
+    run_phase("4t", phase_train_grads)
+    launches["flash_attention_bwd"] = run_phase(
+        "5", phase_train)["flash_attention_bwd"]
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_xla.py:104"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:110"),
                "ssd_chunked": ("src/repro_torch/csrc/ssd_scan.cu",

@@ -12,7 +12,10 @@
 //     out = sum_c 2^(lse_c - M) o_c / sum_c 2^(lse_c - M),  M = max_c lse_c
 //
 // and 0 for a row whose every chunk is empty (no visible key). The plain
-// PyTorch version of the same rule is kernels/combine.py::merge_partials.
+// PyTorch version of the same rule is kernels/attn_split.py::merge_partials.
+// With lse_out (the prefill forward's, for the backward), it also writes
+// the row's merged log-sum-exp in base e, (M + log2 den) ln 2, -inf for an
+// empty row, at [B, H, T] (row r = (b T + t) H + h of the partials).
 
 #pragma once
 
@@ -66,7 +69,8 @@ constexpr int kCombineThreads = 128;
 template <typename Elem>
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const float* __restrict__ opart, const float* __restrict__ lse,
-               Elem* __restrict__ out, int n_split, long long R, int D) {
+               Elem* __restrict__ out, int n_split, long long R, int D,
+               float* __restrict__ lse_out, int T, int H) {
   const int nq = D / 4;
   const long long i = blockIdx.x * static_cast<long long>(kCombineThreads) +
                       threadIdx.x;
@@ -91,6 +95,11 @@ combine_kernel(const float* __restrict__ opart, const float* __restrict__ lse,
     m = m_new;
   }
   const float inv = den > 0.f ? 1.f / den : 0.f;
+  if (lse_out != nullptr && c4 == 0) {
+    const long long bt = r / H, b = bt / T;
+    lse_out[(b * H + r % H) * T + bt % T] =
+        den > 0.f ? (m + log2f(den)) * 0.6931471805599453f : -INFINITY;
+  }
   store4(out + r * D + 4 * c4,
          make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv));
 }
@@ -98,12 +107,13 @@ combine_kernel(const float* __restrict__ opart, const float* __restrict__ lse,
 template <typename Elem>
 cudaError_t launch_combine(const float* opart, const float* lse, void* out,
                            int n_split, long long R, int D,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, float* lse_out = nullptr,
+                           int T = 1, int H = 1) {
   const long long blocks = (R * (D / 4) + kCombineThreads - 1) /
                            kCombineThreads;
   combine_kernel<Elem><<<static_cast<unsigned>(blocks), kCombineThreads, 0,
                          stream>>>(opart, lse, static_cast<Elem*>(out),
-                                   n_split, R, D);
+                                   n_split, R, D, lse_out, T, H);
   return cudaGetLastError();
 }
 

@@ -36,6 +36,14 @@
 // kernel merges. A warp-specialised wgmma/TMA pipeline (FlashAttention-3's
 // shape) is the next step.
 //
+// The row log-sum-exp for the backward (flash_attention_bwd.cu): when the
+// caller passes lse_out ([B, H, T] float32), the kernel writes each row's
+// log-sum-exp of its scaled scores in base e, lse = ln sum_k exp(scale q.k),
+// and -inf for a row with no visible key. The bfloat16 kernel keeps its
+// running max and sum in base 2 and writes (m + log2 l) ln 2; the split
+// path's combine writes the merged chunks' (attn_split.cuh); the float32
+// kernel's scores are in base e already. Serving passes null.
+//
 // float32 keeps the CUDA-core design: the tensor cores take float32 only
 // as TF32, ~3 decimal digits, which cannot hold the 2e-5 to which the
 // float32 kernel is held against its plain version; float32 serves the
@@ -51,6 +59,7 @@
 // multiples of 16 bytes (the wrapper makes a copy otherwise).
 
 #include "attn_split.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -59,6 +68,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {  // element strides of the batch, sequence and head axes
   long long b, t, h;
@@ -71,6 +81,7 @@ struct Params {
   void* o;
   float* opart;        // [n_split, B*T*H, D] when n_split > 1
   float* lse;          // [n_split, B*T*H]
+  float* lse_out;      // [B, H, T] base-e row log-sum-exp, or null
   const int* kv_map;   // [H] or null
   int B, T, S, H, Hk;
   Strides qs, ks, vs;
@@ -110,32 +121,6 @@ __device__ __forceinline__ void visible_tiles(int q0, int rows, int bn,
                                     : 0;
   *t_begin = kv_begin / bn;
   *t_end = kv_end > kv_begin ? (kv_end + bn - 1) / bn : *t_begin;
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // rows x D elements from global (row r at base + r * stride) into shared
@@ -332,6 +317,9 @@ flash_mma_kernel(const Params p) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const long long r = (static_cast<long long>(b) * p.T + row) * p.H + h;
     if (p.n_split == 1) {
+      if (p.lse_out != nullptr && t4 == 0)
+        p.lse_out[(static_cast<long long>(b) * p.H + h) * p.T + row] =
+            l > 0.f ? (m_row[i] + log2f(l)) * kLn2 : -INFINITY;
       bf16* orow = static_cast<bf16*>(p.o) + r * D + 2 * t4;
 #pragma unroll
       for (int dt = 0; dt < kDT; ++dt)
@@ -364,7 +352,7 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess || p.n_split == 1) return err;
   return launch_combine<bf16>(p.opart, p.lse, p.o, p.n_split,
                               static_cast<long long>(p.B) * p.T * p.H, D,
-                              stream);
+                              stream, p.lse_out, p.T, p.H);
 }
 
 template <int D>
@@ -527,6 +515,11 @@ flash_f32_kernel(const Params p) {
       o[off] = acc[r] / fmaxf(l_s[i], 1e-30f);
     }
   }
+  if (p.lse_out != nullptr) {
+    for (int i = tid; i < kBlockQ && q0 + i < T; i += kThreads)
+      p.lse_out[(static_cast<long long>(b) * p.H + h) * T + q0 + i] =
+          l_s[i] > 0.f ? m_s[i] + logf(l_s[i]) : -INFINITY;
+  }
 }
 
 template <int D>
@@ -552,17 +545,19 @@ cudaError_t launch(int dtype, const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; kv_map is a
 // device array of H int32 or null; opart/lse are the split scratch (null
-// when n_split == 1; float32 takes n_split == 1 only). Returns the
+// when n_split == 1; float32 takes n_split == 1 only); lse_out is the
+// [B, H, T] float32 row log-sum-exp in base e, or null. Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* opart,
-    void* lse, const void* kv_map, int dtype, int B, int T, int S, int H,
+    void* lse, void* lse_out, const void* kv_map, int dtype, int B, int T, int S, int H,
     int Hk, int D, long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, int causal, int window, int q_offset,
     float scale, int n_split, int tiles_per_split, void* stream) {
   const Params p{q, k, v, o, static_cast<float*>(opart),
-                 static_cast<float*>(lse), static_cast<const int*>(kv_map),
+                 static_cast<float*>(lse), static_cast<float*>(lse_out),
+                 static_cast<const int*>(kv_map),
                  B, T, S, H, Hk, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
                  {v_sb, v_st, v_sh}, causal, window, q_offset, scale,
                  n_split, tiles_per_split};

@@ -6,6 +6,14 @@
 (Mamba2 SSD) and ``rglru`` (the RG-LRU recurrence, a/x:[B,T,W]) run the
 Hopper kernels on CUDA tensors and plain PyTorch on CPU tensors. There is
 no switch and no fallback: a CUDA tensor the kernel cannot take raises.
+
+Gradients: ``attention`` is differentiable on both devices (the backward
+kernel on CUDA, see ``flash_attention.FlashAttentionFn``); ``decode_attention``
+is never on a training path. ``ssd`` and ``rglru`` keep autograd through
+their plain versions on the CPU, as the JAX package differentiates its
+oracles; their kernels have no backward yet, so their wrappers refuse a
+CUDA tensor that needs a gradient rather than lose it
+(``device.refuse_grad``).
 """
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention as attention

@@ -14,8 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention_ref", "decode_attention_ref", "ssd_ref",
-           "ssd_dual", "rglru_ref"]
+__all__ = ["flash_attention_ref", "attention_mask", "decode_attention_ref",
+           "ssd_ref", "ssd_dual", "rglru_ref"]
 
 _NEG = -1e30
 
@@ -28,6 +28,19 @@ def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask.any(-1, keepdim=True), w, torch.zeros_like(w))
 
 
+def attention_mask(T: int, S: int, *, causal: bool, window: int,
+                   q_offset: int, device=None) -> torch.Tensor:
+    """[T, S] bool: the keys query row i (at position i + q_offset) sees."""
+    qp = torch.arange(T, device=device)[:, None] + q_offset
+    kp = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= (qp - kp) < window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: int = 0,
@@ -37,13 +50,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     logits = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
-    qp = torch.arange(T, device=q.device)[:, None] + q_offset
-    kp = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qp >= kp
-    if window:
-        mask &= (qp - kp) < window
+    mask = attention_mask(T, S, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
     w = _softmax_masked(logits, mask[None, None])
     out = torch.einsum("bhts,bshd->bthd", w, v.float())
     return out.to(q.dtype)

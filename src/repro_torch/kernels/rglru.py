@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 from .ref import rglru_ref
 
@@ -82,6 +83,7 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     read."""
     if a.device.type == "cpu":
         return rglru_scan_plain(a, x, init_state)
+    refuse_grad("rglru_scan", a, x, init_state)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for {a.device}")
     if a.dim() != 3:

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 from .ref import ssd_dual
 
@@ -146,6 +147,7 @@ def ssd_chunked(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if x.device.type == "cpu":
         y, s = ssd_chunked_plain(x, B, C, dt, A, D, init_state)
         return y, (s if out_state is None else out_state.copy_(s))
+    refuse_grad("ssd_chunked", x, B, C, dt, A, D, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked: no kernel for {x.device}")
     Bz, T, H, hd = x.shape

@@ -10,7 +10,11 @@ Mamba2 (SSD) mixer and the RG-LRU recurrent block of RecurrentGemma.
     each sequence at its own position (``pos`` is a [B] tensor): the new
     K/V are written in place at each sequence's position and attention
     runs with ``lengths = pos + 1``;
-  * ``encode``  — full-sequence bidirectional, no cache (an encoder).
+  * ``encode``  — full-sequence bidirectional, no cache (an encoder);
+  * ``train``   — the prefill's math with no cache built or returned (the
+    JAX package's train mode); every block has it, and no block writes in
+    place on it, so autograd runs through (the attention kernel's backward
+    through ``FlashAttentionFn``).
 ``mla_apply`` has the prefill and decode modes over a latent cache
 ``{"c", "kr"}`` (see its docstring); ``cross_apply`` attends to an
 encoder's memory, or to the cross K/V a cache holds.
@@ -115,9 +119,13 @@ class Attention(nn.Module):
         self.wo = Dense(dims.n_q * dims.hd, d, dtype=dtype, device=device)
         self.real_rows = cfg.n_heads * dims.hd
         # the q->kv map the attention kernels read, int32 on the model's
-        # device: made once, never converted or copied per call
-        self.register_buffer("kv_map", dims.q_to_kv(cfg).to(
+        # device: made once, never converted or copied per call; the same
+        # map as Python ints, from which the backward kernel's inverse map
+        # is built on the host
+        q_to_kv = dims.q_to_kv(cfg)
+        self.register_buffer("kv_map", q_to_kv.to(
             device=device, dtype=torch.int32), persistent=False)
+        self.kv_map_host = tuple(q_to_kv.tolist())
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -130,6 +138,15 @@ class Attention(nn.Module):
 def attn_init(cfg: ArchConfig, *, dtype=torch.bfloat16,
               device=None) -> Attention:
     return Attention(cfg, dtype=dtype, device=device)
+
+
+def _attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            **kw) -> torch.Tensor:
+    """The prefill attention kernel over the stored KV heads through the
+    layer's map (differentiable: the backward builds its inverse map from
+    ``kv_map_host``)."""
+    return kops.attention(q, k, v, kv_map=p.kv_map,
+                          kv_map_host=p.kv_map_host, **kw)
 
 
 def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
@@ -192,16 +209,15 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         Pk = cache["k"].shape[1]
         k_all = torch.cat([cache["k"], k], 1)
         v_all = torch.cat([cache["v"], v], 1)
-        out = kops.attention(q, k_all, v_all, causal=True, q_offset=Pk,
-                             window=window, kv_map=p.kv_map)
+        out = _attend(p, q, k_all, v_all, causal=True, q_offset=Pk,
+                      window=window)
         keep = min(window, Pk + T) if window else Pk + T
         new_cache = {"k": k_all[:, -keep:], "v": v_all[:, -keep:]}
-    elif mode == "encode":
-        out = kops.attention(q, k, v, causal=False, kv_map=p.kv_map)
+    elif mode in ("encode", "train"):
+        out = _attend(p, q, k, v, causal=mode == "train", window=window)
         new_cache = None
     else:
-        out = kops.attention(q, k, v, causal=True, window=window,
-                             kv_map=p.kv_map)
+        out = _attend(p, q, k, v, causal=True, window=window)
         keep = min(window, T) if window else T
         new_cache = {"k": k[:, T - keep:], "v": v[:, T - keep:]}
     y = p.wo(out.reshape(B, T, dims.n_q * dims.hd))
@@ -238,7 +254,7 @@ def cross_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig,
         out = kops.decode_attention(q[:, 0], k, v, lengths,
                                     kv_map=p.kv_map)[:, None]
     else:
-        out = kops.attention(q, k, v, causal=False, kv_map=p.kv_map)
+        out = _attend(p, q, k, v, causal=False)
     return p.wo(out.reshape(B, T, dims.n_q * dims.hd)), k, v
 
 
@@ -343,7 +359,8 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     ctx = torch.einsum("bhts,bsr->bthr", w, c32)
     out = torch.einsum("bthr,rhv->bthv", ctx,
                        p.wv_b.w.reshape(r, H, dv).float())
-    return p.wo(out.to(x.dtype).reshape(B, T, H * dv)), new_cache
+    return (p.wo(out.to(x.dtype).reshape(B, T, H * dv)),
+            None if mode == "train" else new_cache)
 
 
 # ---------------------------------------------------------------- dense FFN
@@ -464,7 +481,8 @@ def _moe_token_gather(p: MoE, x: torch.Tensor, cfg: ArchConfig
 def moe_apply(p: MoE, x: torch.Tensor, *, cfg: ArchConfig, mode: str
               ) -> torch.Tensor:
     """x: [B, T, D]. The token gather for decode, the sorted grouped
-    products otherwise, plus the shared experts."""
+    products otherwise (train included: JAX's ``_moe_local`` on one
+    device), plus the shared experts."""
     local = _moe_token_gather if mode == "decode" else _moe_local
     y = local(p, x, cfg)
     if p.shared is not None:
@@ -570,6 +588,8 @@ def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     if mode == "decode":
         cache["conv"].copy_(new_conv)
         return out, cache
+    if mode == "train":
+        return out, None
     return out, {"conv": new_conv, "state": state}
 
 
@@ -659,4 +679,6 @@ def rglru_apply(p: RGLRU, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(state)
         return y, cache
+    if mode == "train":
+        return y, None
     return y, {"conv": new_conv, "state": state}

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Dense", "RMSNorm", "SwiGLU", "normal_", "rmsnorm", "rope",
-           "apply_rope", "gqa_attention"]
+           "apply_rope", "gqa_attention", "softmax_xent"]
 
 
 #: float32 values drawn at once by ``normal_``: a larger tensor is drawn
@@ -137,3 +137,21 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhrts,bshe->bthre", w, v.float())
     return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------- loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore_index: int = -100) -> torch.Tensor:
+    """Mean token cross-entropy in float32 over the labels that are not
+    ``ignore_index``, as the JAX ``softmax_xent``: ``logsumexp(logits) -
+    logits[label]`` a token, summed and divided by the count of valid
+    labels (at least 1). The gold logit is a gather here; JAX's one-hot
+    select-reduce is the same value, written for a vocab sharded over
+    devices."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    loss = torch.where(valid, lse - gold, torch.zeros_like(lse))
+    return loss.sum() / valid.sum().clamp(min=1)

@@ -10,13 +10,19 @@ the embedding, or its own ``unembed``).
 
 Public API, in the JAX package's layouts (``Model`` of ``repro.models.lm``):
   init(generator)                      -> fills the parameters in place
+  loss(batch)                          -> scalar float32 (differentiable)
   prefill(batch, caches=None, pos=0)   -> (logits_last [B,1,Vp], caches)
   decode_step(caches, tok, pos)        -> (logits [B,1,Vp], caches)
   init_cache(batch_size, max_len, kv_dtype=None, src_len=0) -> zero caches
 
 ``batch`` holds ``tokens`` [B, T] or ``inputs_embeds`` [B, T, d], and
 ``src_embeds`` [B, S, d] for an encoder-decoder; ``tok`` of ``decode_step``
-is [B, 1] ints or [B, 1, d] embeddings.
+is [B, 1] ints or [B, 1, d] embeddings. ``loss`` also reads ``labels``
+[B, T] (and ``labels2`` for the MTP term of a model with ``mtp``).
+
+Parameters are built with ``requires_grad=False`` and serving runs under
+``no_grad``; training turns gradients on with ``Model.requires_grad_()``
+(``training.trainer.init_train_state`` does).
 
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
 then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
@@ -39,14 +45,16 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .blocks import (AttnDims, attn_apply, attn_init, cross_apply, ffn_apply,
                      ffn_init, mla_apply, mla_init, moe_apply, moe_init,
                      rglru_apply, rglru_init, ssd_apply, ssd_init)
-from .layers import Dense, RMSNorm, normal_
+from .layers import Dense, RMSNorm, normal_, softmax_xent
 from .sharding import HEAD_PAD, pad_to_multiple
 
 __all__ = ["Model", "build_model", "Segment", "plan_segments"]
@@ -144,7 +152,7 @@ class Layer(nn.Module):
         if self.kind == "ssm":
             h, mix_cache = ssd_apply(self.mix, h, cfg=cfg, mode=mode,
                                      cache=mix_in)
-            return x + h, {"mix": mix_cache}
+            return x + h, (None if mix_cache is None else {"mix": mix_cache})
         if self.kind == "rec":
             h, mix_cache = rglru_apply(self.mix, h, cfg=cfg, mode=mode,
                                        cache=mix_in)
@@ -187,13 +195,17 @@ class Model(nn.Module):
     encoder-decoder adds ``encoder`` (``enc_layers`` layers) and
     ``enc_ln_f``; a model with ``mtp`` adds ``mtp_proj`` [2d, d] and
     ``mtp_layer`` (one layer, built as layer ``n_layers - 1``). Serving
-    never reads the MTP head: it is the training loss's."""
+    never reads the MTP head: it is the training loss's. ``remat``: the
+    train mode recomputes each layer in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``; the values do not change), as
+    the JAX launcher's ``--remat``."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.segments = plan_segments(cfg)
         self.embed = nn.Parameter(
             torch.zeros(self.vocab_padded, cfg.d_model, dtype=dtype,
@@ -259,12 +271,17 @@ class Model(nn.Module):
         entry goes to ``sink(si, i, c, entry)`` as the layer returns it
         (segment ``si``, sublayer ``i``, block ``c``) and none is kept:
         caches is None. A segment of no blocks gives caches with a ``count``
-        axis of 0, as JAX's scan over no blocks does."""
+        axis of 0, as JAX's scan over no blocks does. The train mode builds
+        no caches (None), and with ``remat`` checkpoints each layer."""
         new_caches = []
+        keep = sink is None and mode != "train"
         for si, seg in enumerate(self.segments):
             outs: List[List[Dict[str, Any]]] = [[] for _ in seg.kinds]
             for c, block in enumerate(self._blocks(si)):
                 for i, layer in enumerate(block):
+                    if mode == "train":
+                        x = self._train_layer(layer, x, memory)
+                        continue
                     ci = None if caches is None else _tree_map(
                         lambda t: t[c], caches[si][i])
                     x, nc = layer(x, cfg=self.cfg, mode=mode, cache=ci,
@@ -273,7 +290,7 @@ class Model(nn.Module):
                         outs[i].append(nc)
                     else:
                         sink(si, i, c, nc)
-            if sink is not None:
+            if not keep:
                 continue
             if mode == "decode":
                 new_caches.append(caches[si])
@@ -285,7 +302,17 @@ class Model(nn.Module):
                 new_caches.append([_tree_map(lambda *ts: torch.stack(ts),
                                              *per_layer)
                                    for per_layer in outs])
-        return x, (None if sink is not None else new_caches)
+        return x, (new_caches if keep else None)
+
+    def _train_layer(self, layer: "Layer", x: torch.Tensor, memory=None
+                     ) -> torch.Tensor:
+        """One layer in the train mode, recomputed in the backward when
+        ``remat``."""
+        def run(h, mem):
+            return layer(h, cfg=self.cfg, mode="train", memory=mem)[0]
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(run, x, memory, use_reentrant=False)
+        return run(x, memory)
 
     def _empty_segment_cache(self, seg: Segment, B: int, T: int, prefix,
                              memory):
@@ -302,8 +329,14 @@ class Model(nn.Module):
         if "inputs_embeds" in batch:
             return torch.as_tensor(batch["inputs_embeds"],
                                    device=self.device).to(self.dtype)
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return self.embed[tokens.long()]
+        return self._lookup(batch["tokens"])
+
+    def _lookup(self, tokens) -> torch.Tensor:
+        """Rows of ``embed``; ``F.embedding``, whose backward on the card
+        sums each row's gradient in a fixed order (indexing's backward adds
+        with atomics, in an order that changes from run to run)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        return F.embedding(tokens.long(), self.embed)
 
     def _encode(self, src_embeds) -> torch.Tensor:
         """The encoder over the source embeddings [B, S, d]: bidirectional
@@ -321,6 +354,31 @@ class Model(nn.Module):
             logits = torch.where(iota < self.cfg.vocab, logits,
                                  torch.full_like(logits, -1e30))
         return logits
+
+    # ----------------------------------------------------------------- train
+    def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The JAX ``Model.loss``: the encoder over ``src_embeds`` for an
+        encoder-decoder, the embeddings (``tokens`` or ``inputs_embeds``),
+        every segment in the train mode, the logits and the mean token
+        cross-entropy against ``labels`` (``-100`` ignored). A model with
+        ``mtp`` given ``labels2`` adds DeepSeek-V3's multi-token prediction:
+        the final hidden state joined with the embeddings of ``labels``
+        (clipped at 0), ``mtp_proj``, one step of ``mtp_layer`` and ``0.3 x``
+        the cross-entropy of its logits against ``labels2``."""
+        memory = None
+        if self.encoder is not None:
+            memory = self._encode(batch["src_embeds"])
+        x = self._embed(batch)
+        x, _ = self._run_segments(x, "train", memory=memory)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        loss = softmax_xent(self._logits(x), labels)
+        if self.mtp_layer is not None and "labels2" in batch:
+            emb2 = self._lookup(labels.clamp(min=0))
+            h2 = self.mtp_proj(torch.cat([x, emb2.to(x.dtype)], -1))
+            h2 = self._train_layer(self.mtp_layer[0], h2)
+            labels2 = torch.as_tensor(batch["labels2"], device=self.device)
+            loss = loss + 0.3 * softmax_xent(self._logits(h2), labels2)
+        return loss
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
@@ -354,7 +412,7 @@ class Model(nn.Module):
         B = tok.shape[0]
         pos = torch.as_tensor(pos, device=self.device).long().expand(B)
         x = tok.to(self.dtype) if tok.is_floating_point() \
-            else self.embed[tok.long()]
+            else self._lookup(tok)
         x, caches = self._run_segments(x, "decode", caches=caches, pos=pos)
         return self._logits(x), caches
 
@@ -427,11 +485,13 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig, *, device=None, dtype=torch.bfloat16,
-                generator: Optional[torch.Generator] = None) -> Model:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> Model:
     """Build on ``device`` (default: the card; raises without one). With a
     ``generator`` the weights are drawn from it; otherwise they are zero
     until :meth:`Model.init` or a ``load_state_dict``."""
-    model = Model(cfg, dtype=dtype, device=resolve_device(device))
+    model = Model(cfg, dtype=dtype, device=resolve_device(device),
+                  remat=remat)
     if generator is not None:
         model.init(generator)
     return model

@@ -762,3 +762,123 @@ def test_smoke_model_matches_cpu_on_card(arch):
                                for x in steps]))
     scale = float(outs[1].abs().max())
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------------ attention backward
+#: the four backward cases of chip_smoke.py's phase 2, narrowed in batch:
+#: (B, T, S, D, H, map, mask keywords)
+BWD_CASES = {
+    "1g-smollm": (2, 1024, 1024, 64, 16, [min(h // 3, 4) for h in range(16)],
+                  dict(causal=True)),
+    "1s-starcoder2": (1, 512, 512, 128, 32,
+                      [min(h // 12, 1) for h in range(32)],
+                      dict(causal=True)),
+    "1r-window-d256": (1, 700, 700, 256, 16, [0] * 16,
+                       dict(causal=True, window=256)),
+    "1x-cross": (2, 256, 64, 64, 16, None, dict(causal=False)),
+}
+
+
+def _bwd_inputs(dev, name, tdt):
+    from repro_torch.kernels.flash_attention import _forward
+    B, T, S, D, H, kv, mask = BWD_CASES[name]
+    Hk = max(kv) + 1 if kv else H
+    g = torch.Generator(device=dev).manual_seed(T + D)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(tdt)
+    k, v = (torch.randn(B, S, Hk, D, generator=g, device=dev).to(tdt)
+            for _ in range(2))
+    dout = torch.randn(B, T, H, D, generator=g, device=dev).to(tdt)
+    kw = dict(dict(causal=True, window=0, q_offset=0, scale=None), **mask,
+              kv_map=None if kv is None else torch.tensor(
+                  kv, dtype=torch.int32, device=dev))
+    out, lse = _forward(q, k, v, with_lse=True, **kw)
+    return (q, k, v, out, lse, dout), kv, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_kernel_matches_plain_on_card(name, dtype):
+    """dq/dk/dv of the backward kernel against its plain version on the
+    same inputs, and the forward's row lse against the plain lse (1e-4:
+    float32 sums of the same products in another order)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_lse_plain)
+    dev = _card()
+    (q, k, v, out, lse, dout), kv, kw = _bwd_inputs(dev, name,
+                                                   DTYPES[dtype])
+    torch.testing.assert_close(lse, flash_attention_lse_plain(q, k, **kw),
+                               atol=1e-4, rtol=1e-4)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=kv, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_.float(), w.float(), atol=_tol(dtype),
+                                   rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_attention_bwd_kernel_is_bitwise_repeatable_on_card(name):
+    """No float atomics: two calls give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    dev = _card()
+    args, kv, kw = _bwd_inputs(dev, name, torch.bfloat16)
+    a = flash_attention_bwd(*args, kv_map_host=kv, **kw)
+    b = flash_attention_bwd(*args, kv_map_host=kv, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_attention_grad_through_a_map_needs_its_host_copy_on_card():
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = _card()
+    q = torch.randn(1, 64, 16, 64, device=dev, requires_grad=True)
+    k, v = (torch.randn(1, 64, 5, 64, device=dev) for _ in range(2))
+    m = torch.tensor([min(h // 3, 4) for h in range(16)], dtype=torch.int32,
+                     device=dev)
+    with pytest.raises(ValueError, match="kv_map_host"):
+        flash_attention(q, k, v, kv_map=m)
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_matches_cpu_on_card():
+    """One train step of the smollm smoke model in float32, the same weights
+    and batch on the card (the attention kernels, forward and backward) and
+    on the CPU: the loss, the norm and the updated parameters. The first
+    Adam step moves an element by lr g/(|g| + eps), ill-conditioned where
+    |g| is within ~100 eps of 0; such elements are held to lr, the rest to
+    1e-4 of each parameter's largest value."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      make_train_step)
+    from repro_torch.training.trainer import TrainState
+    dev = _card()
+    cfg = SMOKES["smollm-360m"]
+    opt = AdamWConfig(lr=1e-3, warmup=1)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    batch = synthetic_batch(cfg, 2, 64, seed=0, step=0, device="cpu")
+    res = []
+    for m in (card, cpu):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        state = TrainState(params, adamw_init(params, opt), 0)
+        state, met = make_train_step(m, opt)(
+            state, {k: v.to(m.device) for k, v in batch.items()})
+        res.append((state, {k: float(v) for k, v in met.items()}))
+    (sc, mc), (sp, mp) = res
+    assert mc["loss"] == pytest.approx(mp["loss"], rel=1e-5)
+    assert mc["grad_norm"] == pytest.approx(mp["grad_norm"], rel=1e-4)
+    for n, want in sp.params.items():
+        got = sc.params[n].detach().cpu()
+        ill = (sp.opt.m[n].abs() / (1 - opt.b1)) <= 1e-6
+        d = (got - want.detach()).abs()
+        assert float(torch.where(ill, d, 0.0).max()) <= 1.01 * opt.lr, n
+        assert float(torch.where(ill, 0.0, d).max()) <= 1e-4 * float(
+            want.detach().abs().max()) + 1e-7, n

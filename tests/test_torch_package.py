@@ -49,6 +49,27 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(_modules()) > 30
 
 
+@pytest.mark.parametrize("module", ["repro_torch.training",
+                                    "repro_torch.launch.train"])
+def test_training_modules_import_without_jax_or_repro(module):
+    """The training slice on its own, with ``jax`` and ``repro`` blocked:
+    what it imports (the optimizer, the trainer, the checkpoints, the model
+    and its conversions) pulls in neither."""
+    assert module in _modules()
+    code = ("import sys, importlib; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"m = importlib.import_module({module!r})\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))"
+            " for k, v in sys.modules.items() if v is not None)\n"
+            "print(sorted(n for n in sys.modules if n.startswith("
+            "'repro_torch.training')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ, "PYTHONPATH": str(SRC)},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "'repro_torch.training.checkpoint'" in out.stdout
+
+
 def test_no_module_imports_jax_or_repro():
     banned = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = list((SRC / "repro_torch").rglob("*.py")) + [SRC.parent /
