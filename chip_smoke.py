@@ -76,7 +76,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
      fall by more than 1.0, then a warm step timed and one profiled (ms a
      step, tokens a second, peak memory, idle share, the device shares of
      the attention kernels, the GEMMs and the optimizer); the backward
-     kernel's launches are this run's.
+     kernel's launches are this run's; 5s: full-width full-depth
+     starcoder2-3b (30 layers, 32 query heads over 2 KV heads, head dim
+     128) through the same launcher, B=2 x 1024: 3 steps with finite
+     losses and 30 launches of each attention kernel a step, then a warm
+     step timed and one profiled.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -311,6 +315,14 @@ def bwd_case(name, B, T, S, D, *, H=16, kv_map=None, kv_heads=None,
     check(f"{label} lse", lse, want_lse, LSE_TOL)
     got = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=host,
                               **kw)
+    n_split = flash_attention_bwd.n_split        # the split it launched
+    if dtype is torch.bfloat16:
+        log(f"  {label}: dK/dV grid {B * Hk * -(-S // 64) * n_split} blocks "
+            f"({B} x {Hk} KV heads x {-(-S // 64)} key tiles x {n_split} "
+            f"splits), dQ grid {B * H * -(-T // 64)}")
+    else:
+        log(f"  {label}: float32 kernels, dK/dV grid "
+            f"{B * Hk * -(-S // 32)} blocks (no split)")
     again = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=host,
                                 **kw)
     want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
@@ -706,13 +718,23 @@ def phase_kernels():
 
 
 def fwd_lse_timing(q, k, v, kw):
-    """The forward kernel's device time at 1g-bwd's shapes with the row
-    log-sum-exp written (the train path) and without it (serving)."""
-    from repro_torch.kernels.flash_attention import _forward
+    """Row 1t: the forward kernel's device time at 1g-bwd's shapes with the
+    row log-sum-exp written (the train path) and without it (serving), the
+    plain version's (output and lse, 2 calls a graph) and SDPA's forward on
+    K/V expanded to the query heads."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention_lse_plain, flash_attention_plain)
     with_lse = graph_ms(lambda: _forward(q, k, v, with_lse=True, **kw))
     without = graph_ms(lambda: _forward(q, k, v, with_lse=False, **kw))
+    plain = graph_ms(lambda: (flash_attention_plain(q, k, v, **kw),
+                              flash_attention_lse_plain(q, k, **kw)), 2)
+    qt = q.transpose(1, 2)
+    kt, vt = (expanded(x, kw["kv_map"]).transpose(1, 2) for x in (k, v))
+    sdpa = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
     log(f"    flash_attention forward at 1g-bwd's shapes: with lse "
-        f"{with_lse:.4f} ms, without {without:.4f} ms")
+        f"{with_lse:.4f} ms, without {without:.4f} ms | plain (output and "
+        f"lse) {plain:.4f} ms | library {sdpa:.4f} ms (SDPA forward)")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1641,7 +1663,6 @@ def phase_train(steps=6, ckpt_at=3):
     from repro_torch.models import build_model
     from repro_torch.training import (AdamWConfig, init_train_state,
                                       make_train_step)
-    from repro_torch.training import trainer
 
     cfg = _arch("smollm-360m")
     log(f"[5] train: full-width full-depth smollm-360m (bf16, seed 0), "
@@ -1651,8 +1672,9 @@ def phase_train(steps=6, ckpt_at=3):
     with tempfile.TemporaryDirectory() as ckpt:
         flash_attention.launches = flash_attention_bwd.launches = 0
         t0 = time.perf_counter()
-        straight, losses = launch.run("smollm-360m", steps=steps,
-                                      ckpt_dir=ckpt, ckpt_every=ckpt_at, **kw)
+        straight, losses, _ = launch.run("smollm-360m", steps=steps,
+                                         ckpt_dir=ckpt, ckpt_every=ckpt_at,
+                                         **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": flash_attention.launches,
@@ -1667,8 +1689,9 @@ def phase_train(steps=6, ckpt_at=3):
         # the straight run also saved at ``steps``: drop that checkpoint,
         # so that the resume starts from ``ckpt_at``
         shutil.rmtree(os.path.join(ckpt, f"step_{steps:08d}"))
-        resumed, more = launch.run("smollm-360m", steps=steps, ckpt_dir=ckpt,
-                                   ckpt_every=0, resume=True, **kw)
+        resumed, more, _ = launch.run("smollm-360m", steps=steps,
+                                      ckpt_dir=ckpt, ckpt_every=0,
+                                      resume=True, **kw)
         assert len(more) == steps - ckpt_at and all(np.isfinite(more))
         diff = max(float((a.detach().float() - b.detach().float()).abs()
                          .max()) for a, b in zip(straight.params.values(),
@@ -1703,22 +1726,33 @@ def phase_train(steps=6, ckpt_at=3):
     assert fixed[-1] < fixed[0] - 1.0, (fixed[0], fixed[-1])
 
     # warm steps: the time a step, then one under the profiler
+    state = profile_train_step(step_fn, state, batch, TRAIN_B * TRAIN_T)
+    del model, state
+    return launches
+
+
+def profile_train_step(step_fn, state, batch, tokens, reps=5):
+    """Time ``reps`` warm steps (host clock to a sync), then trace one under
+    ``torch.profiler``: ms a step, tokens a second, peak memory since the
+    caller's reset, device busy time and idle share, the top kernels and the
+    device shares of the attention kernels, the GEMMs and the ``optimizer``
+    span. Returns the state after the steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.training import trainer
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reps = 5
     for _ in range(reps):
         state, metrics = step_fn(state, batch)
     float(metrics["loss"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
-    tokens = TRAIN_B * TRAIN_T
     log(f"  warm step {ms:.2f} ms ({reps} steps, host clock to a sync), "
         f"{tokens / ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB "
         f"(weights, AdamW moments, activations, the float32 logits and "
         f"their gradient)")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
     inner = trainer.adamw_update
 
     def spanned(*a, **k):
@@ -1745,8 +1779,8 @@ def phase_train(steps=6, ckpt_at=3):
             f"{e.count:6d} calls  {e.key[:90]}")
     device_shares(rows, busy, [
         ("attention forward (flash_mma_kernel)", ("flashmma",)),
-        ("attention backward (dkdv, dq, delta kernels)",
-         ("dkdvmma", "dqmma", "deltakernel")),
+        ("attention backward (delta, dkdv, sum_splits, dq kernels)",
+         ("dkdvwgmma", "dqwgmma", "deltakernel", "sumsplits")),
         ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90"))])
     for e in averages:
         if e.key == "optimizer" and e.device_type == DeviceType.CPU:
@@ -1754,7 +1788,51 @@ def phase_train(steps=6, ckpt_at=3):
             log(f"  span optimizer (adamw_update): device time of its "
                 f"kernels {opt_ms:.2f} ms, {opt_ms / 1e3 / busy:.3f} of "
                 f"device busy time")
-    del model, state
+    return state
+
+
+#: starcoder2-3b's training batch (phase 5s)
+TRAIN_S_B, TRAIN_S_T = 2, 1024
+
+
+def phase_train_starcoder2(steps=3):
+    """5s: ``repro_torch.launch.train.run`` on full-width full-depth
+    starcoder2-3b in bf16 (30 layers, 24 heads padded to 32 over 2 KV heads
+    in groups of 12 and 20, head dim 128; bf16 parameters, float32 AdamW
+    moments), B=2, T=1024, lr 1e-3, warmup 10, seed 0: ``steps`` straight
+    steps with finite losses, each attention kernel launched steps x 30
+    times; then warm steps timed and one traced on the model the run
+    trained. The backward runs starcoder2's 32 over 2 (row 5s) here, split
+    over the query heads. Returns the launch counts."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch import train as launch
+
+    cfg = _arch("starcoder2-3b")
+    log(f"[5s] train: full-width full-depth starcoder2-3b (bf16, seed 0), "
+        f"B={TRAIN_S_B} T={TRAIN_S_T}, lr 1e-3, warmup 10, AdamW")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    state, losses, step_fn = launch.run(
+        "starcoder2-3b", smoke=False, steps=steps, batch=TRAIN_S_B,
+        seq=TRAIN_S_T, lr=1e-3, warmup=10, seed=0, log_every=1,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    log(f"  straight run: {steps} steps in {wall:.2f} s (first step "
+        f"included), losses {['%.4f' % x for x in losses]}, launches "
+        f"{launches}, the backward's split of each KV head's query heads "
+        f"{flash_attention_bwd.n_split}")
+    assert all(np.isfinite(losses)) and len(losses) == steps
+    for n in launches:
+        assert launches[n] == steps * cfg.n_layers, launches
+    batch = launch.synthetic_batch(cfg, TRAIN_S_B, TRAIN_S_T, 0, steps)
+    state = profile_train_step(step_fn, state, batch, TRAIN_S_B * TRAIN_S_T,
+                               reps=3)
+    del state, step_fn
     return launches
 
 
@@ -1863,6 +1941,10 @@ def main() -> int:
     run_phase("4t", phase_train_grads)
     launches["flash_attention_bwd"] = run_phase(
         "5", phase_train)["flash_attention_bwd"]
+    # starcoder2-3b's train step: the backward at 32 query heads over 2 KV
+    # heads, split over blocks (row 5s; the kernels line keeps phase 5's
+    # count, the main path's)
+    run_phase("5s", phase_train_starcoder2)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

@@ -1,6 +1,6 @@
-// Shared by flash_attention.cu and flash_attention_bwd.cu: the bfloat16
-// tensor-core tile operations of the attention kernels (ldmatrix loads from
-// shared memory and mma.sync.m16n8k16 with float32 accumulation).
+// The bfloat16 tensor-core tile operations of flash_attention.cu (ldmatrix
+// loads from shared memory and mma.sync.m16n8k16 with float32
+// accumulation).
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t4 = lane % 4): the
 // accumulator c[0..1] holds row g, columns 2 t4 and 2 t4 + 1, c[2..3] row

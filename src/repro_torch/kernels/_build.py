@@ -26,7 +26,7 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
            "ssd_scan", "rglru_scan")
 #: the headers under ``csrc/`` each source includes: a change rebuilds it
 DEPS = {"flash_attention": ("attn_split.cuh", "mma_bf16.cuh"),
-        "flash_attention_bwd": ("attn_split.cuh", "mma_bf16.cuh"),
+        "flash_attention_bwd": ("attn_split.cuh", "hopper.cuh"),
         "decode_attention": ("attn_split.cuh",)}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

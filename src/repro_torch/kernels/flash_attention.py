@@ -20,9 +20,13 @@ package's ``repro/kernels/flash_xla.py::_bwd``, the custom VJP that JAX
 differentiates off the TPU: it recomputes the probabilities from the
 forward's row log-sum-exp (``lse``, [B, H, T] float32 in base e, which the
 forward kernel writes when a gradient is needed) and sums dK/dV over the
-query heads of each KV head. ``FlashAttentionFn`` binds the two; the
-kernels are reached through ctypes, so autograd sees them only through it.
-``flash_attention`` goes through it whenever a gradient is needed.
+query heads of each KV head. In bfloat16 it runs on ``wgmma`` with TMA
+loads; where one block per (64 keys, KV head) would leave SMs idle, each
+KV head's query heads are split over ``bwd_split_plan``'s ``n_split``
+blocks whose float32 partials are summed in split order.
+``FlashAttentionFn`` binds the two; the kernels are reached through
+ctypes, so autograd sees them only through it. ``flash_attention`` goes
+through it whenever a gradient is needed.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. ``flash_attention.launches`` counts wrapper calls that launched the
@@ -43,11 +47,19 @@ from .ref import attention_mask, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_lse_plain",
-           "FlashAttentionFn", "HEAD_DIMS"]
+           "FlashAttentionFn", "HEAD_DIMS", "bwd_split_plan"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 96, 128, 256)
 BLOCK_M = 64            # query rows a block of the bfloat16 kernel
+#: keys a dK/dV block and query rows a dQ block of the bfloat16 backward
+BWD_TILE = 64
+#: head dims of the bfloat16 backward (32 and 96 are zero-padded to them)
+BWD_HEAD_DIMS = (64, 128, 256)
+#: dK/dV blocks an SM that ``bwd_split_plan`` aims for
+BWD_BLOCKS_PER_SM = 2
+#: the most splits of a KV head's query heads (bounds the float32 scratch)
+BWD_MAX_SPLIT = 16
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,6 +98,24 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
     return torch.logsumexp(s, dim=-1)
 
 
+def _bwd_heads(q, k, v, out, lse, dout, *, causal, window, q_offset, scale,
+               kv_map):
+    """float32 (dq, dk_h, dv_h): dq, and dk/dv of each query head before
+    the sum into its KV head ([B, S, H, D])."""
+    s, scale = _scores(q, k, causal=causal, window=window, q_offset=q_offset,
+                       scale=scale, kv_map=kv_map)
+    live = torch.isfinite(s) & torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)   # [B,H,T,S]
+    do32 = dout.float()
+    delta = torch.einsum("bthd,bthd->bht", out.float(), do32)
+    dp = torch.einsum("bthd,bshd->bhts", do32, expand_kv(v, kv_map).float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, expand_kv(k, kv_map).float())
+    dk_h = torch.einsum("bhts,bthd->bshd", ds, q.float())
+    dv_h = torch.einsum("bhts,bthd->bshd", p, do32)
+    return dq, dk_h, dv_h
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor, *,
@@ -100,17 +130,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     p (dout v^T - delta) scale``, ``dq = ds k``, ``dk = ds^T q``, with dk/dv
     of the query heads summed into the KV head each reads. Returns (dq, dk,
     dv) in the dtypes of q, k, v."""
-    s, scale = _scores(q, k, causal=causal, window=window, q_offset=q_offset,
-                       scale=scale, kv_map=kv_map)
-    live = torch.isfinite(s) & torch.isfinite(lse)[..., None]
-    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)   # [B,H,T,S]
-    do32 = dout.float()
-    delta = torch.einsum("bthd,bthd->bht", out.float(), do32)
-    dp = torch.einsum("bthd,bshd->bhts", do32, expand_kv(v, kv_map).float())
-    ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("bhts,bshd->bthd", ds, expand_kv(k, kv_map).float())
-    dk_h = torch.einsum("bhts,bthd->bshd", ds, q.float())       # per q head
-    dv_h = torch.einsum("bhts,bthd->bshd", p, do32)
+    dq, dk_h, dv_h = _bwd_heads(q, k, v, out, lse, dout, causal=causal,
+                                window=window, q_offset=q_offset, scale=scale,
+                                kv_map=kv_map)
     if kv_map is None:
         dk, dv = dk_h, dv_h
     else:
@@ -250,19 +272,17 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 13 + [I] * 10 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 14 + [I] * 10 + [ctypes.c_float, I, P]
         fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _groups(kv_map_host: Tuple[int, ...], Hk: int, device: torch.device
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The inverse of the query-head -> KV-head map, built on the host from
-    its Python ints (clamped to ``[0, Hk)`` as the kernels clamp): int32
-    ``group_off`` [Hk + 1] and ``group_heads`` [H] on ``device``, the query
-    heads of KV head j at ``group_heads[group_off[j]:group_off[j + 1]]``.
-    Made once per map and device."""
+def _inverse_map(kv_map_host: Tuple[int, ...], Hk: int
+                 ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The inverse of the query-head -> KV-head map (clamped to ``[0, Hk)``
+    as the kernels clamp): ``off`` [Hk + 1] and ``heads`` [H], the query
+    heads of KV head j, ascending, at ``heads[off[j]:off[j + 1]]``."""
     kv = [min(max(int(m), 0), Hk - 1) for m in kv_map_host]
     heads = sorted(range(len(kv)), key=lambda h: (kv[h], h))
     off = [0] * (Hk + 1)
@@ -270,8 +290,33 @@ def _groups(kv_map_host: Tuple[int, ...], Hk: int, device: torch.device
         off[m + 1] += 1
     for j in range(Hk):
         off[j + 1] += off[j]
+    return tuple(off), tuple(heads)
+
+
+@functools.lru_cache(maxsize=None)
+def _groups(kv_map_host: Tuple[int, ...], Hk: int, device: torch.device
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_inverse_map`` as the int32 tensors the kernel reads on
+    ``device``, made once per map and device."""
+    off, heads = _inverse_map(kv_map_host, Hk)
     return (torch.tensor(off, dtype=torch.int32, device=device),
             torch.tensor(heads, dtype=torch.int32, device=device))
+
+
+def bwd_split_plan(B: int, Hk: int, S: int, group_sizes: Sequence[int],
+                   n_sm: int) -> int:
+    """Splits of each KV head's query heads for the bfloat16 dK/dV kernel,
+    from Python ints: 1 while its ``B * Hk * ceil(S / 64)`` blocks give
+    every SM ``BWD_BLOCKS_PER_SM``; else enough splits to, as far as the
+    largest group (a split of no head is a block that writes zeros) and
+    ``BWD_MAX_SPLIT`` allow. Split s of a group of g heads takes heads
+    ``[s per, (s + 1) per)``, ``per = ceil(g / n_split)``, clipped to the
+    group (the rule of ``csrc/flash_attention_bwd.cu``)."""
+    blocks = B * Hk * -(-S // BWD_TILE)
+    target = BWD_BLOCKS_PER_SM * n_sm
+    if blocks == 0 or blocks >= target:
+        return 1
+    return max(1, min(max(group_sizes), BWD_MAX_SPLIT, -(-target // blocks)))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -286,7 +331,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row log-sum-exp ``lse`` [B, H, T] and the output's gradient ``dout``.
     ``kv_map_host``: the same map as ``kv_map``, as Python ints, from which
     the kernel's inverse map is built (the device map is never read back);
-    required with a ``kv_map`` on CUDA tensors."""
+    required with a ``kv_map`` on CUDA tensors. In bfloat16 each KV head's
+    query heads are split over ``bwd_split_plan``'s blocks;
+    ``flash_attention_bwd.n_split`` is the split of the last launch."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
               kv_map=kv_map)
     if q.device.type == "cpu":
@@ -303,33 +350,54 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                or len(kv_map_host) != H):
         raise ValueError("flash_attention_bwd: a kv_map needs kv_map_host, "
                          f"its {H} Python ints")
-    groups = _groups(tuple(kv_map_host) if kv_map is not None
-                     else tuple(range(H)), Hk, q.device)
-    q, k, v, out, dout, lse = (x.contiguous() for x in (q, k, v, out,
-                                                         dout.to(q.dtype),
-                                                         lse))
+    host = tuple(kv_map_host) if kv_map is not None else tuple(range(H))
+    bf16 = q.dtype == torch.bfloat16
+    n_split = 1
+    if bf16:
+        off = _inverse_map(host, Hk)[0]
+        n_split = bwd_split_plan(B, Hk, S, [off[j + 1] - off[j]
+                                            for j in range(Hk)],
+                                 sm_count(q.device))
+    groups = _groups(host, Hk, q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    # the bfloat16 kernels tile D by 64 columns: 32 and 96 are zero-padded
+    # (zero columns add nothing to the scores, their gradients are dropped)
+    Dp = next(d for d in BWD_HEAD_DIMS if d >= D) if bf16 else D
+    pad = (lambda x: torch.nn.functional.pad(x, (0, Dp - D))) if Dp != D \
+        else (lambda x: x)
+    q, k, v, out, dout = (pad(x).contiguous() for x in (
+        q, k, v, out, dout.to(q.dtype)))
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+        return tuple(x[..., :D].zero_() for x in (dq, dk, dv))
+    Tp = -(-T // BWD_TILE) * BWD_TILE
+    scratch = torch.empty((2, B, H, Tp), dtype=torch.float32, device=q.device)
+    part = (torch.empty((2, n_split, B, S, Hk, Dp), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_lib().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(),
         None if kv_map is None else kv_map.data_ptr(),
         groups[0].data_ptr(), groups[1].data_ptr(),
-        DTYPES[q.dtype], B, T, S, H, Hk, D, int(causal), int(window),
-        int(q_offset), float(scale), stream)
+        DTYPES[q.dtype], B, T, S, H, Hk, Dp, int(causal), int(window),
+        int(q_offset), float(scale), n_split, stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"cudaError {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.n_split = n_split
+    if Dp != D:
+        return dq[..., :D].contiguous(), dk[..., :D].contiguous(), \
+            dv[..., :D].contiguous()
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.n_split = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):

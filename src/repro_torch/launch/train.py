@@ -68,7 +68,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 8,
     """Train ``arch`` (its smoke config, or the full one with
     ``smoke=False``) in bf16 for steps ``[start, steps)``, ``start`` the
     newest checkpoint's step with ``resume`` and 0 otherwise, saving every
-    ``ckpt_every`` steps into ``ckpt_dir``. Returns (state, losses)."""
+    ``ckpt_every`` steps into ``ckpt_dir``. Returns (state, losses,
+    step_fn), ``step_fn`` the run's train step (``make_train_step``)."""
     if model_par > 1:
         raise NotImplementedError(
             "model_par > 1 is the multi-GPU slice (ROADMAP queue 1 #8); "
@@ -104,7 +105,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 8,
                   f"{dt * 1e3:.0f} ms/step", flush=True)
         if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
             save_checkpoint(ckpt_dir, step + 1, state)
-    return state, losses
+    return state, losses, step_fn
 
 
 def main() -> None:
@@ -125,7 +126,7 @@ def main() -> None:
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args()
-    _, losses = run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
+    _, losses, _ = run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
                     seq=a.seq, lr=a.lr, seed=a.seed, ckpt_dir=a.ckpt,
                     ckpt_every=a.ckpt_every, resume=a.resume,
                     model_par=a.model_par, remat=a.remat, warmup=a.warmup,

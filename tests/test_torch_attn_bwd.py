@@ -7,7 +7,10 @@ differentiates off the TPU), for causal, windowed, causal-at-``q_offset``
 and unmasked attention over the identity map, smollm's 16 -> 5, MQA 16 -> 1
 and starcoder2's 32 -> 2 in groups of 12 and 20; the forward's row
 log-sum-exp against ``flash_xla``'s; a fully masked row's zero gradients;
-``FlashAttentionFn`` on CPU tensors.
+``FlashAttentionFn`` on CPU tensors; the split of a KV head's query heads
+over blocks (``bwd_split_plan``) and the splits' dK/dV summed in split
+order. The kernel's own grid (its ``blockIdx`` decoding) is held to the
+plain version on the card (``tests/test_torch_cuda.py``).
 
 float32 throughout, inputs from seeded numpy. Tolerance 2e-5 (absolute and
 relative): the same float32 math summed in other orders."""
@@ -23,7 +26,7 @@ from repro.kernels import flash_xla
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
-    FlashAttentionFn, flash_attention, flash_attention_bwd,
+    FlashAttentionFn, bwd_split_plan, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_lse_plain,
     flash_attention_plain)
 
@@ -201,3 +204,77 @@ def test_bwd_wrapper_on_cpu_is_the_plain_version():
     got = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=kv, **tkw)
     want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **tkw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ------------------------------------------- the split of a KV head's heads
+def _split_partials(q, k, v, out, lse, dout, kv, n_split, kw):
+    """The dK/dV of each split, float32 [2, n_split, B, S, Hk, D]: split s
+    takes heads ``[s per, (s + 1) per)`` of each KV head's query heads
+    (ascending), ``per = ceil(group / n_split)``, the rule of
+    ``csrc/flash_attention_bwd.cu``; its partial is the plain backward of
+    those query heads alone."""
+    H, Hk = q.shape[2], k.shape[2]
+    kv = list(range(H)) if kv is None else kv
+    groups = [[h for h in range(H) if kv[h] == j] for j in range(Hk)]
+    parts = []
+    for s in range(n_split):
+        heads = []
+        for g in groups:
+            per = -(-len(g) // n_split)
+            heads += g[s * per:(s + 1) * per]
+        if not heads:
+            parts.append(torch.zeros((2,) + tuple(k.shape)))
+            continue
+        idx = torch.tensor(sorted(heads))
+        _, dk, dv = flash_attention_bwd_plain(
+            q[:, :, idx], k, v, out[:, :, idx], lse[:, idx], dout[:, :, idx],
+            **dict(kw, kv_map=torch.tensor([kv[h] for h in sorted(heads)],
+                                           dtype=torch.int32)))
+        parts.append(torch.stack([dk, dv]))
+    return torch.stack(parts, 1)
+
+
+@pytest.mark.parametrize("shape,groups,want", [
+    # smollm-360m's train step (row 5): 640 blocks already, no split
+    ((8, 5, 1024), [3, 3, 3, 3, 4], "one"),
+    # starcoder2-3b's 32 over 2 (5s) and recurrentgemma-9b's MQA (5r)
+    ((2, 2, 1024), [12, 20], "fills"),
+    ((1, 1, 2112), [16], "fills"),
+    # the card tests' split cases: 15 splits of 12 and 20, 11 of 16
+    ((1, 2, 576), [12, 20], "fills"),
+    ((1, 1, 1600), [16], "fills"),
+    # seamless's cross-attention: MHA, groups of one cannot split
+    ((8, 16, 64), [1] * 16, "one")])
+def test_split_plan_fills_the_card(shape, groups, want):
+    B, Hk, S = shape
+    n = bwd_split_plan(B, Hk, S, groups, 132)
+    blocks = B * Hk * -(-S // 64) * n
+    if want == "one":
+        assert n == 1
+    else:
+        assert n > 1 and blocks >= 2 * 132 and n <= max(groups)
+    assert bwd_split_plan(B, Hk, S, groups, 1) == 1
+
+
+@pytest.mark.parametrize("n_split", [2, 3, 16])
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+@pytest.mark.parametrize("map_name", sorted(MAPS))
+def test_split_partials_sum_to_the_plain_backward(map_name, mask_name,
+                                                  n_split):
+    """The dK/dV of the splits (the kernel's float32 scratch), summed in
+    split order, are the plain backward's: every query head lies in exactly
+    one split, with groups the split does not divide too (16 splits of 12
+    and 20 heads leave splits empty)."""
+    arrs, kv, kw = _case(map_name, mask_name, seed=8)
+    q, k, v, dout = (torch.from_numpy(a) for a in arrs)
+    tkw = _torch_kw(kw, kv)
+    out = flash_attention_plain(q, k, v, **tkw)
+    lse = flash_attention_lse_plain(q, k, **tkw)
+    part = _split_partials(q, k, v, out, lse, dout, kv, n_split, kw)
+    assert part.shape == (2, n_split) + tuple(k.shape)
+    total = part[:, 0].clone()
+    for s in range(1, n_split):
+        total += part[:, s]
+    _, dk, dv = _plain(arrs, kv, kw)
+    _close(total[0], dk)
+    _close(total[1], dv)

@@ -765,8 +765,8 @@ def test_smoke_model_matches_cpu_on_card(arch):
 
 
 # ------------------------------------------------------ attention backward
-#: the four backward cases of chip_smoke.py's phase 2, narrowed in batch:
-#: (B, T, S, D, H, map, mask keywords)
+#: the backward cases of chip_smoke.py's phase 2, narrowed in batch, and the
+#: split and padded cases below: (B, T, S, D, H, map, mask keywords)
 BWD_CASES = {
     "1g-smollm": (2, 1024, 1024, 64, 16, [min(h // 3, 4) for h in range(16)],
                   dict(causal=True)),
@@ -776,6 +776,18 @@ BWD_CASES = {
     "1r-window-d256": (1, 700, 700, 256, 16, [0] * 16,
                        dict(causal=True, window=256)),
     "1x-cross": (2, 256, 64, 64, 16, None, dict(causal=False)),
+    # shapes whose planned split of a KV head's query heads does not divide
+    # the groups (on the H100's 132 SMs): starcoder2's 12 and 20 over 15
+    # splits (3 and 5 of them empty), MQA's 16 at head dim 256 with a window
+    # over 11 (3 empty); and head dim 96, which the bfloat16 kernels pad to
+    # 128
+    "1s-split-starcoder2": (1, 576, 576, 128, 32,
+                            [min(h // 12, 1) for h in range(32)],
+                            dict(causal=True)),
+    "1r-split-mqa-d256-window": (1, 1600, 1600, 256, 16, [0] * 16,
+                                 dict(causal=True, window=256)),
+    "1d96-smollm": (1, 200, 200, 96, 16, [min(h // 3, 4) for h in range(16)],
+                    dict(causal=True)),
 }
 
 
@@ -811,6 +823,8 @@ def test_attention_bwd_kernel_matches_plain_on_card(name, dtype):
     torch.testing.assert_close(lse, flash_attention_lse_plain(q, k, **kw),
                                atol=1e-4, rtol=1e-4)
     got = flash_attention_bwd(q, k, v, out, lse, dout, kv_map_host=kv, **kw)
+    if "split" in name and dtype == "bfloat16":
+        assert flash_attention_bwd.n_split > 1
     want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     for g_, w in zip(got, want):
@@ -821,11 +835,14 @@ def test_attention_bwd_kernel_matches_plain_on_card(name, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(BWD_CASES))
 def test_attention_bwd_kernel_is_bitwise_repeatable_on_card(name):
-    """No float atomics: two calls give the same bits."""
+    """No float atomics: two calls give the same bits, on the split path
+    too."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     dev = _card()
     args, kv, kw = _bwd_inputs(dev, name, torch.bfloat16)
     a = flash_attention_bwd(*args, kv_map_host=kv, **kw)
+    if "split" in name:
+        assert flash_attention_bwd.n_split > 1
     b = flash_attention_bwd(*args, kv_map_host=kv, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 

@@ -371,14 +371,14 @@ def test_checkpoint_atomicity(tmp_path, monkeypatch):
 def test_launcher_end_to_end(tmp_path):
     """launch.train drives a (tiny) run with checkpoints on the CPU, then
     resumes from the newest one."""
-    _, losses = train_run("smollm-360m", steps=6, batch=2, seq=16,
-                          ckpt_dir=str(tmp_path), ckpt_every=3, log_every=0,
-                          device="cpu")
+    _, losses, _ = train_run("smollm-360m", steps=6, batch=2, seq=16,
+                             ckpt_dir=str(tmp_path), ckpt_every=3,
+                             log_every=0, device="cpu")
     assert len(losses) == 6 and np.isfinite(losses).all()
     assert latest_step(str(tmp_path)) == 6
-    _, more = train_run("smollm-360m", steps=8, batch=2, seq=16,
-                        ckpt_dir=str(tmp_path), resume=True, log_every=0,
-                        device="cpu")
+    _, more, _ = train_run("smollm-360m", steps=8, batch=2, seq=16,
+                           ckpt_dir=str(tmp_path), resume=True, log_every=0,
+                           device="cpu")
     assert len(more) == 2                        # 6 -> 8
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_run("smollm-360m", steps=1, model_par=2, device="cpu")
