@@ -30,7 +30,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
      (1g-bwd), starcoder2-3b's 32 over 2, recurrentgemma-9b's window at
      head dim 256, seamless's unmasked cross-attention and one float32
      case, each called twice and required bitwise equal, with SDPA's
-     backward as its yardstick;
+     backward as its yardstick. The scans' backward kernels
+     (``ssd_chunked_bwd``, ``rglru_scan_bwd``) are held to their plain
+     versions, every gradient within 1e-4 of its own largest value, at
+     the per-layer training shapes of 5m (3bwd) and 5r (4bwd), and with an
+     initial state and a final state's adjoint (a ragged chunk, one short
+     chunk; 4bwd also after CUDA-graph replays), each called twice and
+     required bitwise equal;
   3. serve — behind ``DisaggServer``, random weights from seed 0, bf16:
      full-width smollm-360m on 16 requests (flash and decode attention),
      full-width mamba2-1.3b on an agent-style stream whose follow-ups
@@ -68,7 +74,10 @@ Phases, in order; any failure exits non-zero before a result is printed:
      4 decode steps on the caches admitted as ``DecodeBatch.add`` admits
      them (for qwen1.5-32b int8 caches on both sides, the codes that
      differ counted), logits compared; 4t: the loss and every parameter's
-     gradient of full-width smollm-360m at depth 2, float32, card vs CPU;
+     gradient of full-width smollm-360m at depth 2, mamba2-1.3b at depth 2
+     and recurrentgemma-9b at depth 3 (one (rec, rec, attn) unit),
+     float32, card vs CPU, with each forward and backward kernel's
+     launches;
   5. train — ``repro_torch.launch.train.run`` on full-width full-depth
      smollm-360m in bf16 (B=8 x 1024 tokens, AdamW, lr 1e-3, warmup 10,
      seed 0): 6 steps with a checkpoint at 3, a run resumed from it held
@@ -80,7 +89,14 @@ Phases, in order; any failure exits non-zero before a result is printed:
      starcoder2-3b (30 layers, 32 query heads over 2 KV heads, head dim
      128) through the same launcher, B=2 x 1024: 3 steps with finite
      losses and 30 launches of each attention kernel a step, then a warm
-     step timed and one profiled.
+     step timed and one profiled; 5m: full-width full-depth mamba2-1.3b
+     through ``run`` (B=4 x 1024): 3 steps with a checkpoint at 2, the
+     launcher's loop resumed from it and held bitwise to the straight run,
+     48 launches of each SSD kernel a step, a warm step timed and one
+     profiled (the shares of the SSD forward and backward); 5r:
+     recurrentgemma-9b at full width cut to depth 6 (B=1 x 2112, past the
+     window): 3 steps, the launches of both RG-LRU and both attention
+     kernels, a warm step timed and one profiled.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -175,6 +191,19 @@ def check_rows(name, got, want, rel):
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return err.max().item()
+
+
+def check_rel(name, got, want, rel):
+    """``got`` within ``rel`` of ``want``'s own largest value (a gradient
+    against the plain version's); returns the largest error."""
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    ok = err <= rel * top
+    log(f"  {name}: max_abs_err={err:.3e}, largest value {top:.3e}, limit "
+        f"{rel:g} of it {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
 
 
 def bound_ms(flops, nbytes, dtype, peak=None):
@@ -469,11 +498,33 @@ def ssd_kernel_work(Bz, T, H, hd, N):
     plan = ssd_plan(Bz, T, H, hd, N)
     if plan.path == "recurrence":
         return ssd_cost(Bz, T, H, hd, N)[0], PEAK_FLOPS[torch.float32]
-    Q = plan.chunk
-    pairs = sum(n * (n + 1) // 2 for n in
-                (min(Q, T - t0) for t0 in range(0, T, Q)))
+    pairs = _causal_pairs(T, plan.chunk)
     products = (2.0 * Bz * pairs * N + 2.0 * Bz * H * pairs * hd
                 + 2 * 2.0 * Bz * T * H * hd * N)
+    return 3 * products, TF32_PEAK
+
+
+def _causal_pairs(T, Q):
+    """(t, s) pairs with s <= t inside chunks of Q steps over T steps."""
+    return sum(n * (n + 1) // 2 for n in
+               (min(Q, T - t0) for t0 in range(0, T, Q)))
+
+
+def ssd_bwd_kernel_work(Bz, T, H, hd, N):
+    """(operations, peak rate) of the gradient's products, counted as
+    ``ssd_kernel_work`` counts the forward's: three TF32 products each
+    (3xTF32) on the tensor cores, the card's rate for float32-accurate
+    products, whichever units the kernel runs them on. Over the causal
+    pairs of each chunk: G = C B^T, dC's dG B and dB's dG^T C once per
+    sequence (the heads share B and C), dx's M^T dy and dM = dy x^T per
+    head. Over every step, per head: B ds^T (dx), dy s_in (dC and the
+    decays' term), x ds (dB and dw) and the adjoint carried to the chunk's
+    entry (dy^T C). The chunk-entry states are the forward's: the kernel
+    recomputes them, which is not counted."""
+    from repro_torch.kernels.ssd_scan import SSD_BWD_CHUNK
+    pairs = _causal_pairs(T, SSD_BWD_CHUNK)
+    products = (3 * 2.0 * Bz * pairs * N + 2 * 2.0 * Bz * H * pairs * hd
+                + 4 * 2.0 * Bz * T * H * hd * N)
     return 3 * products, TF32_PEAK
 
 
@@ -595,6 +646,87 @@ def rglru_chain_case(T=2112):
     check(f"rglru_scan[chain 2x{m} = {T}] state", s2, s, RGLRU_TOL)
 
 
+SSD_GRADS = ("dx", "dB", "dC", "ddt", "dA", "dD", "d init_state")
+RGLRU_GRADS = ("da", "dx", "d init_state")
+
+
+def _bitwise(label, first, again):
+    same = all(torch.equal(a, b) for a, b in zip(first, again)
+               if a is not None)
+    log(f"  {label}: two calls bitwise equal: {same}")
+    if not same:
+        raise SystemExit(f"{label}: two calls of the kernel differ")
+
+
+def ssd_bwd_case(name, Bz, T, *, with_state):
+    """The SSD backward (``ssd_chunked_bwd``) against its plain version at
+    mamba2-1.3b's widths: every gradient within SSD_TOL of its own largest
+    value, two calls bitwise equal, then timed. ``with_state``: an initial
+    state and a final state's adjoint (training has neither)."""
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_cost, ssd_chunked_bwd,
+                                              ssd_chunked_bwd_plain)
+    x, B, C, dt, A, D, s0 = ssd_inputs(Bz, T, with_init=with_state,
+                                       seed=Bz * 1000 + T + 1)
+    g = torch.Generator(device="cuda").manual_seed(T + 2)
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    Bz, T, H, hd = x.shape
+    N = B.shape[-1]
+    dsf = (torch.randn(Bz, H, hd, N, generator=g, device="cuda")
+           if with_state else None)
+    args = (x, B, C, dt, A, D, s0, dy, dsf)
+    got = ssd_chunked_bwd(*args)
+    again = ssd_chunked_bwd(*args)
+    want = ssd_chunked_bwd_plain(*args)
+    torch.cuda.synchronize()
+    label = f"ssd_chunked_bwd[{name}]"
+    err = max(check_rel(f"{label} {n}", a, b, SSD_TOL)
+              for n, a, b in zip(SSD_GRADS, got, want) if b is not None)
+    _bitwise(label, got, again)
+    _, nbytes = ssd_bwd_cost(Bz, T, H, hd, N, with_init=with_state,
+                             with_dsf=with_state)
+    ops, peak = ssd_bwd_kernel_work(Bz, T, H, hd, N)
+    # no single PyTorch call computes the gradient: library_ms is null
+    return _timed(label, lambda: ssd_chunked_bwd(*args),
+                  lambda: ssd_chunked_bwd_plain(*args), None, ops, nbytes,
+                  torch.float32, err, plain_reps=2, peak=peak)
+
+
+def rglru_bwd_case(name, B, T, W=4096, *, with_state):
+    """The RG-LRU backward (``rglru_scan_bwd``) against its plain version at
+    recurrentgemma-9b's width: every gradient within RGLRU_TOL of its own
+    largest value, two calls bitwise equal, three CUDA-graph replays (its
+    flags are cleared by a memset inside each call), then timed."""
+    from repro_torch.kernels.rglru import (rglru_bwd_cost, rglru_scan_bwd,
+                                           rglru_scan_bwd_plain,
+                                           rglru_scan_plain)
+    a, x, s0 = rglru_inputs(B, T, W, with_state, seed=B * 1000 + T + 1)
+    h, _ = rglru_scan_plain(a, x, s0)
+    g = torch.Generator(device="cuda").manual_seed(T + 2)
+    dh = torch.randn(B, T, W, generator=g, device="cuda")
+    dhf = (torch.randn(B, W, generator=g, device="cuda") if with_state
+           else None)
+    args = (a, h, s0, dh, dhf)
+    got = rglru_scan_bwd(*args)
+    again = rglru_scan_bwd(*args)
+    want = rglru_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    label = f"rglru_scan_bwd[{name}]"
+    err = max(check_rel(f"{label} {n}", a_, b_, RGLRU_TOL)
+              for n, a_, b_ in zip(RGLRU_GRADS, got, want) if b_ is not None)
+    _bitwise(label, got, again)
+
+    def call():
+        return tuple(t for t in rglru_scan_bwd(*args) if t is not None)
+    err = max(err, replay_check(label, call,
+                                tuple(t for t in want if t is not None),
+                                RGLRU_TOL))
+    flops, nbytes = rglru_bwd_cost(B, T, W, with_state, with_state)
+    # the plain version is a Python loop of T steps: 2 calls a graph
+    return _timed(label, lambda: rglru_scan_bwd(*args),
+                  lambda: rglru_scan_bwd_plain(*args), None, flops, nbytes,
+                  torch.float32, err, plain_reps=2)
+
+
 def phase_kernels():
     log("[2] kernels against their plain versions on the card")
     main = {}
@@ -696,6 +828,20 @@ def phase_kernels():
     rglru_case("decode B=8 T=1 init_state", 8, 1)
     rglru_case("ragged B=3 T=33 W=100 init_state", 3, 33, 100)
     rglru_chain_case()
+    # the scans' backward (3bwd, 4bwd) at the per-layer shapes of phases 5m
+    # and 5r (no initial state, no final state's adjoint: training), then
+    # with both on a ragged chunk and on one short chunk (T <= 32, where
+    # the forward runs its recurrence)
+    main["ssd_chunked_bwd"] = ssd_bwd_case(
+        f"3bwd mamba2-1.3b Bz={MAMBA_TRAIN_B} T={MAMBA_TRAIN_T}",
+        MAMBA_TRAIN_B, MAMBA_TRAIN_T, with_state=False)
+    ssd_bwd_case("ragged T=100 init_state", 1, 100, with_state=True)
+    ssd_bwd_case("one short chunk T=16 init_state", 1, 16, with_state=True)
+    main["rglru_scan_bwd"] = rglru_bwd_case(
+        f"4bwd recurrentgemma-9b B={RG_TRAIN_B} T={RG_TRAIN_T}", RG_TRAIN_B,
+        RG_TRAIN_T, with_state=False)
+    rglru_bwd_case(f"4bwd B={RG_TRAIN_B} T={RG_TRAIN_T} init_state",
+                   RG_TRAIN_B, RG_TRAIN_T, with_state=True)
     # the attention backward at the training shapes: 1g-bwd is full-width
     # smollm-360m's train step (B=8, T=1024, 15 heads padded to 16 over 5
     # KV heads, head dim 64); starcoder2-3b's 32 over 2 in groups of 12 and
@@ -1583,22 +1729,57 @@ def phase_whole_model(arch, n_layers=None, n=256, int8=False, changes=None,
 # ---------------------------------------------------------- phases 4t and 5
 #: full-width smollm-360m's training batch (phase 5)
 TRAIN_B, TRAIN_T = 8, 1024
+#: full-width full-depth mamba2-1.3b's (5m, and row 3bwd's shape): phase 5's
+#: B=8 x 1024 peaks above the ~72 GB this phase allows itself on the 80 GB
+#: card (80.06 GB by tools/train_probe.py, PERF.md), so B=4
+MAMBA_TRAIN_B, MAMBA_TRAIN_T = 4, 1024
+#: recurrentgemma-9b's (5r, and row 4bwd's shape): past its 2048 window, so
+#: the attention backward runs row 5r's masks; cut to RG_TRAIN_DEPTH layers
+#: (whole (rec, rec, attn) units), the deepest whose peak stays under ~72
+#: GB (depth 6 peaked at 68.84 GB by tools/train_probe.py, 9 at 75.97, 12
+#: ran out of the card's memory; PERF.md): full depth would need ~115 GB
+#: for bf16 weights and gradients and float32 moments
+RG_TRAIN_B, RG_TRAIN_T, RG_TRAIN_DEPTH = 1, 2112, 6
 
 
-def phase_train_grads(n_layers=2, B=2, T=256):
-    """4t: the loss and every parameter's gradient of full-width
-    smollm-360m cut to ``n_layers``, float32, through the kernels on the
-    card (the attention forward and backward) and through the plain
-    versions on the CPU: the same weights from seed 0, the same batch."""
+#: the launch counters of the kernels on the training paths
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_chunked",
+                 "ssd_chunked_bwd", "rglru_scan", "rglru_scan_bwd")
+
+
+def _wrappers():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru, ssd_scan
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "ssd_chunked": ssd_scan.ssd_chunked,
+            "ssd_chunked_bwd": ssd_scan.ssd_chunked_bwd,
+            "rglru_scan": rglru.rglru_scan,
+            "rglru_scan_bwd": rglru.rglru_scan_bwd}
+
+
+def zero_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {n: fn.launches for n, fn in _wrappers().items()}
+
+
+def phase_train_grads(arch, n_layers, B, T, expect):
+    """4t: the loss and every parameter's gradient of full-width ``arch``
+    cut to ``n_layers``, float32, through the kernels on the card (each
+    forward and its backward; ``expect``: the launches of each, the others
+    none) and through the plain versions on the CPU: the same weights from
+    seed 0, the same batch."""
     import dataclasses
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(_arch("smollm-360m"), n_layers=n_layers)
-    log(f"[4t] gradients of smollm-360m at full width, depth {n_layers}, "
+    cfg = dataclasses.replace(_arch(arch), n_layers=n_layers)
+    log(f"[4t] gradients of {arch} at full width, depth {n_layers}, "
         f"float32, B={B} T={T}: kernels on the card vs plain on the CPU")
     gpu = _model(cfg, torch.float32)
     cpu = build_model(cfg, device="cpu", dtype=torch.float32)
@@ -1607,7 +1788,7 @@ def phase_train_grads(n_layers=2, B=2, T=256):
     grads, losses = {}, {}
     for name, m in (("cuda", gpu), ("cpu", cpu)):
         m.requires_grad_(True)
-        flash_attention.launches = flash_attention_bwd.launches = 0
+        zero_launches()
         loss = m.loss({k: v.to(m.device) for k, v in batch.items()})
         loss.backward()
         losses[name] = float(loss.detach())
@@ -1615,17 +1796,17 @@ def phase_train_grads(n_layers=2, B=2, T=256):
                        m.named_parameters()}
         if name == "cuda":
             torch.cuda.synchronize()
-            log(f"  cuda: attention launches forward "
-                f"{flash_attention.launches}, backward "
-                f"{flash_attention_bwd.launches}")
-            assert flash_attention.launches == n_layers
-            assert flash_attention_bwd.launches == n_layers
+            launches = read_launches()
+            log(f"  cuda: kernel launches {launches}")
+            want = {n: expect.get(n, 0) for n in TRAIN_KERNELS}
+            assert launches == want, (launches, want)
     # float32 on both sides, TF32 off: only the order of summation differs
-    # (cuBLAS vs the CPU GEMM, the kernels' online softmax and blocked
-    # backward vs the plain versions), ~1e-6 relative per op; each
-    # gradient is held to 1e-3 of its own largest value, as the whole-model
-    # logits of phase 4 are: a gradient that autograd lost (a kernel's
-    # output taken as a constant) or a wrong mask or map moves it by O(1)
+    # (cuBLAS vs the CPU GEMM, the kernels' online softmax, blocked
+    # backward and chunked scans vs the plain versions), ~1e-6 relative per
+    # op; each gradient is held to 1e-3 of its own largest value, as the
+    # whole-model logits of phase 4 are: a gradient that autograd lost (a
+    # kernel's output taken as a constant) or a wrong mask, map or chunk
+    # moves it by O(1)
     worst, worst_name = 0.0, None
     assert grads["cuda"].keys() == grads["cpu"].keys()
     for n, want in grads["cpu"].items():
@@ -1640,8 +1821,7 @@ def phase_train_grads(n_layers=2, B=2, T=256):
         f"parameters' gradients, the largest difference over the "
         f"gradient's largest value {worst:.3e} ({worst_name}; tol 1e-3)")
     if not (rel_loss <= 1e-5 and worst <= 1e-3):
-        raise SystemExit("smollm-360m: gradients disagree between card "
-                         "and CPU")
+        raise SystemExit(f"{arch}: gradients disagree between card and CPU")
     del gpu, cpu
     return worst
 
@@ -1657,8 +1837,6 @@ def phase_train(steps=6, ckpt_at=3):
     of the straight run."""
     import tempfile
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
     from repro_torch.launch import train as launch
     from repro_torch.models import build_model
     from repro_torch.training import (AdamWConfig, init_train_state,
@@ -1670,15 +1848,14 @@ def phase_train(steps=6, ckpt_at=3):
     kw = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_T, lr=1e-3, warmup=10,
               seed=0, log_every=1, device="cuda")
     with tempfile.TemporaryDirectory() as ckpt:
-        flash_attention.launches = flash_attention_bwd.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
-        straight, losses, _ = launch.run("smollm-360m", steps=steps,
-                                         ckpt_dir=ckpt, ckpt_every=ckpt_at,
-                                         **kw)
+        straight, losses = launch.run("smollm-360m", steps=steps,
+                                      ckpt_dir=ckpt, ckpt_every=ckpt_at, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.launches,
-                    "flash_attention_bwd": flash_attention_bwd.launches}
+        launches = {n: k for n, k in read_launches().items()
+                    if n.startswith("flash")}
         log(f"  straight run: {steps} steps in {wall:.2f} s (first step "
             f"included), losses {['%.4f' % x for x in losses]}, launches "
             f"{launches}")
@@ -1689,9 +1866,9 @@ def phase_train(steps=6, ckpt_at=3):
         # the straight run also saved at ``steps``: drop that checkpoint,
         # so that the resume starts from ``ckpt_at``
         shutil.rmtree(os.path.join(ckpt, f"step_{steps:08d}"))
-        resumed, more, _ = launch.run("smollm-360m", steps=steps,
-                                      ckpt_dir=ckpt, ckpt_every=0,
-                                      resume=True, **kw)
+        resumed, more = launch.run("smollm-360m", steps=steps,
+                                   ckpt_dir=ckpt, ckpt_every=0, resume=True,
+                                   **kw)
         assert len(more) == steps - ckpt_at and all(np.isfinite(more))
         diff = max(float((a.detach().float() - b.detach().float()).abs()
                          .max()) for a, b in zip(straight.params.values(),
@@ -1731,11 +1908,28 @@ def phase_train(steps=6, ckpt_at=3):
     return launches
 
 
-def profile_train_step(step_fn, state, batch, tokens, reps=5):
+#: device-share groups of a traced train step (kernel names, lower case
+#: without underscores): the attention kernels, the scans' (the SSD forward
+#: lives in ``dual::``/``rec::``, its backward's kernels are ``ssd_bwd_*``)
+ATTN_GROUPS = [
+    ("attention forward (flash_mma_kernel)", ("flashmma",)),
+    ("attention backward (delta, dkdv, sum_splits, dq kernels)",
+     ("dkdvwgmma", "dqwgmma", "deltakernel", "sumsplits"))]
+SSD_GROUPS = [
+    ("SSD forward (gram + dual_kernel, rec_kernel)", ("dual::", "rec::")),
+    ("SSD backward (ssd_bwd_* kernels)", ("ssdbwd",))]
+RGLRU_GROUPS = [
+    ("RG-LRU forward (rglru_scan_kernel)", ("rglruscankernel",)),
+    ("RG-LRU backward (rglru_scan_bwd_kernel)", ("rglruscanbwdkernel",))]
+GEMM_GROUP = ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
+
+
+def profile_train_step(step_fn, state, batch, tokens, reps=5,
+                       groups=ATTN_GROUPS):
     """Time ``reps`` warm steps (host clock to a sync), then trace one under
     ``torch.profiler``: ms a step, tokens a second, peak memory since the
     caller's reset, device busy time and idle share, the top kernels and the
-    device shares of the attention kernels, the GEMMs and the ``optimizer``
+    device shares of ``groups`` of kernels, the GEMMs and the ``optimizer``
     span. Returns the state after the steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1777,11 +1971,7 @@ def profile_train_step(step_fn, state, batch, tokens, reps=5):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
             f"{e.count:6d} calls  {e.key[:90]}")
-    device_shares(rows, busy, [
-        ("attention forward (flash_mma_kernel)", ("flashmma",)),
-        ("attention backward (delta, dkdv, sum_splits, dq kernels)",
-         ("dkdvwgmma", "dqwgmma", "deltakernel", "sumsplits")),
-        ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90"))])
+    device_shares(rows, busy, list(groups) + [GEMM_GROUP])
     for e in averages:
         if e.key == "optimizer" and e.device_type == DeviceType.CPU:
             opt_ms = e.device_time_total / 1e3
@@ -1796,32 +1986,31 @@ TRAIN_S_B, TRAIN_S_T = 2, 1024
 
 
 def phase_train_starcoder2(steps=3):
-    """5s: ``repro_torch.launch.train.run`` on full-width full-depth
-    starcoder2-3b in bf16 (30 layers, 24 heads padded to 32 over 2 KV heads
+    """5s: the launcher's loop (``launch.train.train_loop``, which ``run``
+    runs) on full-width full-depth starcoder2-3b in bf16 (30 layers, 24 heads padded to 32 over 2 KV heads
     in groups of 12 and 20, head dim 128; bf16 parameters, float32 AdamW
     moments), B=2, T=1024, lr 1e-3, warmup 10, seed 0: ``steps`` straight
     steps with finite losses, each attention kernel launched steps x 30
     times; then warm steps timed and one traced on the model the run
     trained. The backward runs starcoder2's 32 over 2 (row 5s) here, split
     over the query heads. Returns the launch counts."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch import train as launch
 
     cfg = _arch("starcoder2-3b")
     log(f"[5s] train: full-width full-depth starcoder2-3b (bf16, seed 0), "
         f"B={TRAIN_S_B} T={TRAIN_S_T}, lr 1e-3, warmup 10, AdamW")
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
-    state, losses, step_fn = launch.run(
-        "starcoder2-3b", smoke=False, steps=steps, batch=TRAIN_S_B,
-        seq=TRAIN_S_T, lr=1e-3, warmup=10, seed=0, log_every=1,
-        device="cuda")
+    # the launcher's loop itself (``run`` returns no train step)
+    state, losses, step_fn = launch.train_loop(
+        cfg, steps=steps, batch=TRAIN_S_B, seq=TRAIN_S_T, lr=1e-3,
+        warmup=10, seed=0, log_every=1, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_attention_bwd": flash_attention_bwd.launches}
+    launches = {n: k for n, k in read_launches().items()
+                if n.startswith("flash")}
     log(f"  straight run: {steps} steps in {wall:.2f} s (first step "
         f"included), losses {['%.4f' % x for x in losses]}, launches "
         f"{launches}, the backward's split of each KV head's query heads "
@@ -1832,6 +2021,125 @@ def phase_train_starcoder2(steps=3):
     batch = launch.synthetic_batch(cfg, TRAIN_S_B, TRAIN_S_T, 0, steps)
     state = profile_train_step(step_fn, state, batch, TRAIN_S_B * TRAIN_S_T,
                                reps=3)
+    del state, step_fn
+    return launches
+
+
+def phase_train_mamba2(steps=3, ckpt_at=2):
+    """5m: ``repro_torch.launch.train.run`` on full-width full-depth
+    mamba2-1.3b in bf16 (48 layers, d_model 2048, 64 heads of 64, state
+    128; bf16 parameters, float32 AdamW moments), B=4 x 1024, lr 1e-3,
+    warmup 10, seed 0: ``steps`` straight steps with a checkpoint at
+    ``ckpt_at``, then the launcher's loop resumed from it and held bitwise
+    to the straight run's parameters (the SSD backward's determinism gate);
+    finite losses; ``ssd_chunked`` and ``ssd_chunked_bwd`` each launched
+    steps x 48 times; then warm steps timed and one traced on the resumed
+    model. Returns the straight run's launch counts."""
+    import tempfile
+
+    from repro_torch.launch import train as launch
+
+    cfg = _arch("mamba2-1.3b")
+    log(f"[5m] train: full-width full-depth mamba2-1.3b (bf16, seed 0), "
+        f"B={MAMBA_TRAIN_B} T={MAMBA_TRAIN_T} (B=8 peaks above 72 GB), lr "
+        f"1e-3, warmup 10, AdamW")
+    kw = dict(batch=MAMBA_TRAIN_B, seq=MAMBA_TRAIN_T, lr=1e-3, warmup=10,
+              seed=0, log_every=1, device="cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        straight, losses = launch.run("mamba2-1.3b", smoke=False,
+                                      steps=steps, ckpt_dir=ckpt,
+                                      ckpt_every=ckpt_at, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        log(f"  straight run: {steps} steps in {wall:.2f} s (first step and "
+            f"the checkpoint at {ckpt_at} included), losses "
+            f"{['%.4f' % x for x in losses]}, launches {launches}, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        assert all(np.isfinite(losses)) and len(losses) == steps
+        for n in ("ssd_chunked", "ssd_chunked_bwd"):
+            assert launches[n] == steps * cfg.n_layers, launches
+        want = {n: p.detach() for n, p in straight.params.items()}
+        del straight
+        gc_cuda()
+        t0 = time.perf_counter()
+        resumed, more, step_fn = launch.train_loop(
+            cfg, steps=steps, ckpt_dir=ckpt, ckpt_every=0, resume=True, **kw)
+        torch.cuda.synchronize()
+        assert len(more) == steps - ckpt_at and all(np.isfinite(more))
+        bitwise = all(torch.equal(want[n], p) for n, p in
+                      resumed.params.items())
+        diff = max(float((want[n].float() - p.detach().float()).abs().max())
+                   for n, p in resumed.params.items())
+        log(f"  resumed at step {ckpt_at} in {time.perf_counter() - t0:.2f} "
+            f"s: losses {['%.4f' % x for x in more]} (straight "
+            f"{['%.4f' % x for x in losses[ckpt_at:]]}); final parameters "
+            f"bitwise equal to the straight run's: {bitwise}, largest "
+            f"difference {diff:.3e}")
+        if not bitwise:
+            raise SystemExit("phase 5m: the resumed run's parameters differ "
+                             "from the straight run's")
+        del want
+        gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    batch = launch.synthetic_batch(cfg, MAMBA_TRAIN_B, MAMBA_TRAIN_T, 0,
+                                   steps)
+    state = profile_train_step(step_fn, resumed, batch,
+                               MAMBA_TRAIN_B * MAMBA_TRAIN_T, reps=3,
+                               groups=SSD_GROUPS)
+    del state, step_fn, resumed
+    return launches
+
+
+def phase_train_hybrid(steps=3):
+    """5r: the launcher's loop (``launch.train.train_loop``) on
+    recurrentgemma-9b at full width (d_model 4096, RG-LRU width 4096, 16
+    query heads over one KV head of 256, window 2048, vocab 256000), depth
+    cut to RG_TRAIN_DEPTH layers of whole (rec, rec, attn) units, bf16
+    parameters and float32 AdamW moments, B=1 x 2112 (past the window, so
+    the attention backward runs row 5r's masks), lr 1e-3, warmup 10, seed
+    0: ``steps`` steps with finite losses, ``rglru_scan``/``rglru_scan_bwd``
+    launched steps x (recurrent layers) times and the attention kernels
+    steps x (attention layers); then warm steps timed and one traced.
+    Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.launch import train as launch
+
+    full = _arch("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, n_layers=RG_TRAIN_DEPTH)
+    n_attn = cfg.n_attn_layers()
+    n_rec = cfg.n_layers - n_attn
+    reduced = {"n_layers": [full.n_layers, cfg.n_layers]}
+    log(f"[5r] train: recurrentgemma-9b at full width (bf16, seed 0), "
+        f"depth {cfg.n_layers} ({n_rec} recurrent, {n_attn} attention), "
+        f"{cfg.params() / 1e9:.2f} B parameters, B={RG_TRAIN_B} "
+        f"T={RG_TRAIN_T}, lr 1e-3, warmup 10, AdamW; reduced "
+        f"{json.dumps(reduced)}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, losses, step_fn = launch.train_loop(
+        cfg, steps=steps, batch=RG_TRAIN_B, seq=RG_TRAIN_T, lr=1e-3,
+        warmup=10, seed=0, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"  {steps} steps in {wall:.2f} s (first step included), losses "
+        f"{['%.4f' % x for x in losses]}, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    assert all(np.isfinite(losses)) and len(losses) == steps
+    want = {"rglru_scan": n_rec, "rglru_scan_bwd": n_rec,
+            "flash_attention": n_attn, "flash_attention_bwd": n_attn}
+    for n, per_step in want.items():
+        assert launches[n] == steps * per_step, launches
+    batch = launch.synthetic_batch(cfg, RG_TRAIN_B, RG_TRAIN_T, 0, steps)
+    state = profile_train_step(step_fn, state, batch,
+                               RG_TRAIN_B * RG_TRAIN_T, reps=3,
+                               groups=RGLRU_GROUPS + ATTN_GROUPS)
     del state, step_fn
     return launches
 
@@ -1938,13 +2246,30 @@ def main() -> int:
     # launches, and the forward's, are this run's)
     # the kernels line keeps 3a's count for the forward and reads the
     # backward's from phase 5
-    run_phase("4t", phase_train_grads)
+    run_phase("4t", phase_train_grads, "smollm-360m", n_layers=2, B=2,
+              T=256, expect={"flash_attention": 2, "flash_attention_bwd": 2})
+    # the scans' gradients: full-width mamba2-1.3b at depth 2 (the SSD
+    # forward and backward) and recurrentgemma-9b at depth 3, one (rec,
+    # rec, attn) unit (both RG-LRU kernels and both attention kernels at
+    # head dim 256)
+    run_phase("4t", phase_train_grads, "mamba2-1.3b", n_layers=2, B=2,
+              T=256, expect={"ssd_chunked": 2, "ssd_chunked_bwd": 2})
+    run_phase("4t", phase_train_grads, "recurrentgemma-9b", n_layers=3, B=1,
+              T=256, expect={"rglru_scan": 2, "rglru_scan_bwd": 2,
+                             "flash_attention": 1, "flash_attention_bwd": 1})
     launches["flash_attention_bwd"] = run_phase(
         "5", phase_train)["flash_attention_bwd"]
     # starcoder2-3b's train step: the backward at 32 query heads over 2 KV
     # heads, split over blocks (row 5s; the kernels line keeps phase 5's
     # count, the main path's)
     run_phase("5s", phase_train_starcoder2)
+    # the scans' backward on their main paths: full-width full-depth
+    # mamba2-1.3b (5m) and recurrentgemma-9b at a depth cut (5r); the
+    # kernels line reads each backward's launches from its phase
+    launches["ssd_chunked_bwd"] = run_phase(
+        "5m", phase_train_mamba2)["ssd_chunked_bwd"]
+    launches["rglru_scan_bwd"] = run_phase(
+        "5r", phase_train_hybrid)["rglru_scan_bwd"]
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),
@@ -1956,7 +2281,16 @@ def main() -> int:
                "ssd_chunked": ("src/repro_torch/csrc/ssd_scan.cu",
                                "src/repro/kernels/ssd_scan.py:85"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
-                              "src/repro/kernels/rglru.py:57")}
+                              "src/repro/kernels/rglru.py:57"),
+               # no TPU kernel: JAX differentiates its oracles off the TPU
+               "ssd_chunked_bwd": (
+                   "src/repro_torch/csrc/ssd_scan_bwd.cu",
+                   "autodiff of src/repro/kernels/ref.py:168 (ssd_dual), "
+                   "run off the TPU by src/repro/kernels/ops.py:78"),
+               "rglru_scan_bwd": (
+                   "src/repro_torch/csrc/rglru_scan_bwd.cu",
+                   "autodiff of src/repro/kernels/ref.py:237 (rglru_ref), "
+                   "run off the TPU by src/repro/kernels/ops.py:91")}
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], **main_cases[n]}
                for n, (src, rep) in sources.items()]

@@ -50,9 +50,9 @@ def main() -> None:
     half = args.steps // 2
     kw = dict(batch=args.batch, seq=args.seq, ckpt_dir=ckpt, ckpt_every=50,
               log_every=20, device=args.device)
-    _, losses, _ = T.run("smollm-ex", steps=half, **kw)
+    _, losses = T.run("smollm-ex", steps=half, **kw)
     print(f"\n-- simulated failure at step {half}; relaunching --\n")
-    _, more, _ = T.run("smollm-ex", steps=args.steps, resume=True, **kw)
+    _, more = T.run("smollm-ex", steps=args.steps, resume=True, **kw)
     losses += more
     print(f"\nloss: start {losses[0]:.3f} -> end {losses[-1]:.3f} "
           f"({len(losses)} logged steps, resumed across a failure)")

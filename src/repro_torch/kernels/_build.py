@@ -23,7 +23,7 @@ __all__ = ["load", "build_all", "SOURCES", "DEPS", "CSRC", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "ssd_scan", "rglru_scan")
+           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 #: the headers under ``csrc/`` each source includes: a change rebuilds it
 DEPS = {"flash_attention": ("attn_split.cuh", "mma_bf16.cuh"),
         "flash_attention_bwd": ("attn_split.cuh", "hopper.cuh"),

@@ -41,6 +41,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..device import needs_grad
 from . import _build
 from .attn_split import DTYPES, aligned, check_kv_map, expand_kv, sm_count
 from .ref import attention_mask, flash_attention_ref
@@ -443,7 +444,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``FlashAttentionFn``."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
               kv_map=kv_map)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+    if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
                                       scale, kv_map, kv_map_host)
     if q.device.type == "cpu":

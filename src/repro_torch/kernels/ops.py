@@ -7,19 +7,23 @@
 Hopper kernels on CUDA tensors and plain PyTorch on CPU tensors. There is
 no switch and no fallback: a CUDA tensor the kernel cannot take raises.
 
-Gradients: ``attention`` is differentiable on both devices (the backward
-kernel on CUDA, see ``flash_attention.FlashAttentionFn``); ``decode_attention``
-is never on a training path. ``ssd`` and ``rglru`` keep autograd through
-their plain versions on the CPU, as the JAX package differentiates its
-oracles; their kernels have no backward yet, so their wrappers refuse a
-CUDA tensor that needs a gradient rather than lose it
-(``device.refuse_grad``).
+Gradients: ``attention``, ``ssd`` and ``rglru`` are differentiable on both
+devices through their autograd Functions (``FlashAttentionFn``,
+``SsdChunkedFn``, ``RglruScanFn``, taken by the kernels' wrappers
+``flash_attention``, ``ssd_chunked`` and ``rglru_scan``), only when grad
+is enabled and an input needs a gradient: on CUDA tensors the backward
+kernels run (``flash_attention_bwd``, ``ssd_chunked_bwd``,
+``rglru_scan_bwd``), on CPU tensors their plain versions, the formulas
+those kernels implement (the JAX package takes the same gradients by
+autodiff of its oracles). A gradient through ``ssd`` cannot write
+``out_state`` in place.
+``decode_attention`` is never on a training path.
 """
+from ..device import needs_grad
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention as attention
-from .ref import ssd_dual, ssd_ref
 from .rglru import rglru_scan as rglru
-from .ssd_scan import ssd_chunked
+from .ssd_scan import ssd_chunked, ssd_plain
 
 __all__ = ["attention", "decode_attention", "ssd", "rglru"]
 
@@ -29,12 +33,15 @@ def ssd(x, B, C, dt, A, D, init_state=None, out_state=None):
     Returns (y [Bz,T,H,hd], final_state [Bz,H,hd,N]), float32; the final
     state goes into ``out_state`` when given (it may be ``init_state``).
 
-    On the CPU this is the JAX package's dispatch without Pallas: the
-    chunked dual form above 16 steps, the sequential recurrence otherwise.
+    On the CPU without a gradient this is the JAX package's dispatch
+    without Pallas (``ssd_scan.ssd_plain``): the chunked dual form above 16
+    steps, the sequential recurrence otherwise. Everything else goes to
+    ``ssd_chunked``, which takes a gradient through ``SsdChunkedFn`` (whose
+    CPU forward is that same dispatch).
     """
-    if x.device.type == "cpu":
-        ref = ssd_dual if x.shape[1] > 16 else ssd_ref
-        y, s = ref(x, B, C, dt, A, D, init_state=init_state)
+    if x.device.type == "cpu" and not needs_grad(x, B, C, dt, A, D,
+                                                 init_state):
+        y, s = ssd_plain(x, B, C, dt, A, D, init_state)
         return y, (s if out_state is None else out_state.copy_(s))
     return ssd_chunked(x, B, C, dt, A, D, init_state=init_state,
                        out_state=out_state)

@@ -9,8 +9,14 @@ suffixes) the recurrence with the state in registers. Both add ``D * x``
 in their epilogue and may write the final state over the initial one
 (``out_state``). The reasons and the layouts are in the source.
 
+The backward, ``ssd_chunked_bwd`` (``csrc/ssd_scan_bwd.cu``), recomputes
+the chunk-entry states and runs the chunked gradient formulas of
+``ref.ssd_chunked_bwd_plain`` on the float32 CUDA cores; ``SsdChunkedFn``
+binds both to autograd.
+
 A CPU tensor goes to the plain version; a CUDA tensor launches a kernel or
-raises. ``ssd_chunked.launches`` counts kernel launches.
+raises. ``ssd_chunked.launches`` and ``ssd_chunked_bwd.launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -19,12 +25,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import refuse_grad
+from ..device import needs_grad
 from . import _build
-from .ref import ssd_dual
+from .ref import ssd_chunked_bwd_plain, ssd_dual, ssd_ref
 
-__all__ = ["ssd_chunked", "ssd_chunked_plain", "ssd_cost", "ssd_plan",
-           "SsdPlan", "STATE_DIMS", "SSD_REC_MAX_T"]
+__all__ = ["ssd_chunked", "ssd_chunked_plain", "ssd_plain", "ssd_cost",
+           "ssd_plan", "SsdPlan", "STATE_DIMS", "SSD_REC_MAX_T",
+           "ssd_chunked_bwd", "ssd_chunked_bwd_plain", "ssd_bwd_cost",
+           "ssd_bwd_plan", "SsdBwdPlan", "SsdChunkedFn"]
 
 #: state sizes N the kernel is compiled for
 STATE_DIMS = (16, 32, 64, 128)
@@ -37,6 +45,14 @@ SSD_REC_MAX_T = 32
 #: the plain PyTorch version of the kernel: the chunked dual form, the
 #: function the TPU kernel computes (``ref.ssd_dual``)
 ssd_chunked_plain = ssd_dual
+
+
+def ssd_plain(x, B, C, dt, A, D, init_state=None):
+    """The JAX package's SSD off the TPU (``repro/kernels/ops.py::ssd``):
+    the chunked dual form above 16 steps, the sequential recurrence
+    otherwise. The port's CPU path, whose gradient JAX takes by autodiff."""
+    ref = ssd_dual if x.shape[1] > 16 else ssd_ref
+    return ref(x, B, C, dt, A, D, init_state=init_state)
 
 
 def ssd_cost(Bz: int, T: int, H: int, hd: int, N: int, *,
@@ -121,16 +137,16 @@ def _rows16(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _check(name: str, t: torch.Tensor, shape, x: torch.Tensor) -> None:
+def _check(name: str, t: torch.Tensor, shape, x: torch.Tensor,
+           fn: str = "ssd_chunked") -> None:
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"ssd_chunked: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if t.dtype != torch.float32:
-        raise ValueError(f"ssd_chunked: {name} is {t.dtype}; the kernel "
+        raise ValueError(f"{fn}: {name} is {t.dtype}; the kernel "
                          "takes float32")
     if t.device != x.device:
-        raise ValueError(f"ssd_chunked: {name} on {t.device}, x on "
-                         f"{x.device}")
+        raise ValueError(f"{fn}: {name} on {t.device}, x on {x.device}")
 
 
 def ssd_chunked(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -143,11 +159,16 @@ def ssd_chunked(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     [Bz,H,hd,N]), float32; y includes ``D * x``. The final state is written
     into ``out_state`` when given (contiguous; it may be ``init_state``
     itself, which decode uses to update its cache in place), else into a
-    new tensor; ``init_state`` is otherwise only read."""
+    new tensor; ``init_state`` is otherwise only read. A gradient goes
+    through ``SsdChunkedFn`` on either device (no ``out_state`` then)."""
+    if needs_grad(x, B, C, dt, A, D, init_state):
+        if out_state is not None:
+            raise ValueError("ssd_chunked: a gradient through the scan "
+                             "cannot write out_state in place")
+        return SsdChunkedFn.apply(x, B, C, dt, A, D, init_state)
     if x.device.type == "cpu":
         y, s = ssd_chunked_plain(x, B, C, dt, A, D, init_state)
         return y, (s if out_state is None else out_state.copy_(s))
-    refuse_grad("ssd_chunked", x, B, C, dt, A, D, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked: no kernel for {x.device}")
     Bz, T, H, hd = x.shape
@@ -207,3 +228,162 @@ def _launch(plan: SsdPlan, x, B, C, dt, A, D, init_state, y, sf
 
 
 ssd_chunked.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+def ssd_bwd_cost(Bz: int, T: int, H: int, hd: int, N: int, *,
+                 with_init: bool = True, with_dsf: bool = False
+                 ) -> Tuple[float, float]:
+    """(flops, bytes) of one backward call, independent of how the kernels
+    tile time. Flops are the recurrence's gradient, ``8 * Bz * T * H * hd
+    * N``: per state element and step one multiply-add each to carry the
+    adjoint back and to read it and the state out into dx, dB and dC (the
+    states themselves are the forward's: recomputing them is not counted).
+    Bytes read x, dy, B, C, dt, A, D once, the initial state and the final
+    state's adjoint when given, and write dx, dB, dC, ddt, dA, dD and d
+    init_state once."""
+    flops = 8.0 * Bz * T * H * hd * N
+    state = Bz * H * hd * N
+    elems = (3 * Bz * T * H * hd          # x, dy in; dx out
+             + 4 * Bz * T * N             # B, C in; dB, dC out
+             + 2 * Bz * T * H + 4 * H     # dt, ddt; A, D, dA, dD
+             + state * (2 * with_init + with_dsf))
+    return flops, 4.0 * elems
+
+
+#: time steps a chunk of the backward (the forward's dual form's Q)
+SSD_BWD_CHUNK = 64
+
+
+#: heads whose dB/dC terms one block of ``ssd_bwd_bc_kernel`` sums
+SSD_BWD_HEAD_GROUP = 8
+
+
+class SsdBwdPlan(NamedTuple):
+    """The float32 scratch of one call of ``csrc/ssd_scan_bwd.cu`` (the
+    kernels size their shared memory themselves)."""
+    chunks: int         # nc = ceil(T / 64)
+    gram: int           # G of every chunk, [Bz, nc, 64, 64]
+    states: int         # s_in and ds of every chunk, each [Bz, nc, H, N, hd]
+    steps: int          # exp(cs) and w, each [Bz, nc * 64, H]
+    dgh: int            # dM o L of every head, [Bz, nc, H, 64, 64]
+    part: int           # each chunk's part of dA and dD, [2, Bz, nc, H]
+    bcp: int            # each head group's part of dC and dB,
+                        # [2, Bz, nc, groups, 64, N]
+    dgp: int            # each head group's part of dG,
+                        # [Bz, nc, groups, 64, 64]
+
+
+def ssd_bwd_plan(Bz: int, T: int, H: int, hd: int, N: int) -> SsdBwdPlan:
+    Q = SSD_BWD_CHUNK
+    nc = -(-T // Q)
+    groups = -(-H // SSD_BWD_HEAD_GROUP)
+    return SsdBwdPlan(nc, Bz * nc * Q * Q, Bz * nc * H * N * hd,
+                      Bz * nc * Q * H, Bz * nc * H * Q * Q, 2 * Bz * nc * H,
+                      2 * Bz * nc * groups * Q * N, Bz * nc * groups * Q * Q)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P] * 25 + [I] * 6 + [L] * 10 + [P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_chunked_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                    dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                    init_state: Optional[torch.Tensor], dy: torch.Tensor,
+                    dsf: Optional[torch.Tensor]
+                    ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradient of ``ssd_chunked``: the forward's inputs, ``dy``
+    [Bz,T,H,hd] and ``dsf`` [Bz,H,hd,N] (the final state's adjoint; None
+    for zeros), all float32. Returns (dx, dB, dC, ddt, dA, dD, d
+    init_state), the last None without an initial state."""
+    if x.device.type == "cpu":
+        return ssd_chunked_bwd_plain(x, B, C, dt, A, D, init_state, dy, dsf)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked_bwd: no kernel for {x.device}")
+    Bz, T, H, hd = x.shape
+    N = B.shape[-1]
+    for name, t, shape in (("x", x, (Bz, T, H, hd)), ("B", B, (Bz, T, N)),
+                           ("C", C, (Bz, T, N)), ("dt", dt, (Bz, T, H)),
+                           ("A", A, (H,)), ("D", D, (H,)),
+                           ("dy", dy, (Bz, T, H, hd))):
+        _check(name, t, shape, x, "ssd_chunked_bwd")
+    for name, t in (("init_state", init_state), ("dsf", dsf)):
+        if t is not None:
+            _check(name, t, (Bz, H, hd, N), x, "ssd_chunked_bwd")
+    if N not in STATE_DIMS:
+        raise ValueError(f"ssd_chunked_bwd: state size {N} not in "
+                         f"{STATE_DIMS}")
+    x, B, C = _last_dense(x), _last_dense(B), _last_dense(C)
+    A, D, dy = A.contiguous(), D.contiguous(), dy.contiguous()
+    init_state = None if init_state is None else init_state.contiguous()
+    dsf = None if dsf is None else dsf.contiguous()
+    dev = x.device
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dx, dB, dC = new(Bz, T, H, hd), new(Bz, T, N), new(Bz, T, N)
+    ddt, dA, dD = new(Bz, T, H), new(H), new(H)
+    ds0 = None if init_state is None else new(Bz, H, hd, N)
+    if Bz * H * hd == 0:
+        return (dx.zero_(), dB.zero_(), dC.zero_(), ddt.zero_(), dA.zero_(),
+                dD.zero_(), ds0)
+    plan = ssd_bwd_plan(Bz, T, H, hd, N)
+    gram, s_in, s_out, ecs, wv, dgh, part, bcp, dgp = (
+        new(n) for n in (plan.gram, plan.states, plan.states, plan.steps,
+                         plan.steps, plan.dgh, plan.part, plan.bcp,
+                         plan.dgp))
+
+    # rows of x, dy, B and C on 16 bytes: copied 4 floats at a time
+    v16 = hd % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
+        for t in (x, dy, B, C))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_lib().ssd_scan_bwd(
+        *map(ptr, (x, B, C, dt, A, D, init_state, dy, dsf, dx, dB, dC, ddt,
+                   dA, dD, ds0, gram, s_in, s_out, ecs, wv, dgh, part, bcp,
+                   dgp)),
+        Bz, T, H, hd, N, int(v16),
+        x.stride(0), x.stride(1), x.stride(2), B.stride(0), B.stride(1),
+        C.stride(0), C.stride(1), dt.stride(0), dt.stride(1), dt.stride(2),
+        stream)
+    if err:
+        raise RuntimeError(f"ssd_chunked_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    ssd_chunked_bwd.launches += 1
+    return dx, dB, dC, ddt, dA, dD, ds0
+
+
+ssd_chunked_bwd.launches = 0
+
+
+class SsdChunkedFn(torch.autograd.Function):
+    """The SSD scan with the backward of ``ssd_chunked_bwd``; saves the
+    inputs only (the backward recomputes the chunk-entry states). On CUDA
+    tensors both directions launch the kernels; on CPU tensors the forward
+    is ``ssd_plain`` and the backward ``ssd_chunked_bwd_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, B, C, dt, A, D, init_state):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            y, s = ssd_plain(x, B, C, dt, A, D, init_state)
+        else:
+            y, s = ssd_chunked(x, B, C, dt, A, D, init_state)
+        ctx.save_for_backward(x, B, C, dt, A, D, init_state)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, dsf):
+        x, B, C, dt, A, D, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, dtype=torch.float32)
+        return ssd_chunked_bwd(x, B, C, dt, A, D, init_state, dy, dsf)

@@ -13,6 +13,10 @@ Usage:
         --full --steps 6 --batch 8 --seq 1024 --lr 1e-3 --warmup 10 \
         [--ckpt DIR --ckpt-every 3 --resume]
     # on a machine without a card: --device cpu (the smoke config by default)
+
+``run`` returns (state, losses), as the JAX launcher's does; ``train_loop``
+is its loop on a given config (a depth cut, say) and also returns the
+run's train step.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from ..training.checkpoint import (latest_step, restore_checkpoint,
 from ..training.optim import AdamWConfig, adamw_init
 from ..training.trainer import TrainState, init_train_state, make_train_step
 
-__all__ = ["synthetic_batch", "run"]
+__all__ = ["synthetic_batch", "run", "train_loop"]
 
 
 def synthetic_batch(cfg, batch: int, seq: int, seed: int, step: int,
@@ -68,13 +72,26 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 8,
     """Train ``arch`` (its smoke config, or the full one with
     ``smoke=False``) in bf16 for steps ``[start, steps)``, ``start`` the
     newest checkpoint's step with ``resume`` and 0 otherwise, saving every
-    ``ckpt_every`` steps into ``ckpt_dir``. Returns (state, losses,
-    step_fn), ``step_fn`` the run's train step (``make_train_step``)."""
+    ``ckpt_every`` steps into ``ckpt_dir``. Returns (state, losses)."""
     if model_par > 1:
         raise NotImplementedError(
             "model_par > 1 is the multi-GPU slice (ROADMAP queue 1 #8); "
             "the port trains on one device")
-    cfg = (SMOKES if smoke else ARCHS)[arch]
+    state, losses, _ = train_loop(
+        (SMOKES if smoke else ARCHS)[arch], steps=steps, batch=batch,
+        seq=seq, lr=lr, seed=seed, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+        resume=resume, log_every=log_every, remat=remat, warmup=warmup,
+        device=device)
+    return state, losses
+
+
+def train_loop(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
+               lr: float = 3e-4, seed: int = 0, ckpt_dir: str = "",
+               ckpt_every: int = 50, resume: bool = False,
+               log_every: int = 10, remat: bool = False, warmup: int = 100,
+               device=None):
+    """``run``'s loop on the config ``cfg`` itself. Returns (state, losses,
+    step_fn), ``step_fn`` the run's train step (``make_train_step``)."""
     dev = resolve_device(device)
     model = build_model(cfg, device=dev, remat=remat)
     opt_cfg = AdamWConfig(lr=lr, warmup=warmup)
@@ -126,7 +143,7 @@ def main() -> None:
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args()
-    _, losses, _ = run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
+    _, losses = run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
                     seq=a.seq, lr=a.lr, seed=a.seed, ckpt_dir=a.ckpt,
                     ckpt_every=a.ckpt_every, resume=a.resume,
                     model_par=a.model_par, remat=a.remat, warmup=a.warmup,

@@ -14,7 +14,9 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels import ssd_scan
-from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rglru import (rglru_scan, rglru_scan_bwd,
+                                       rglru_scan_bwd_plain,
+                                       rglru_scan_plain)
 from repro_torch.kernels.ssd_scan import (STATE_DIMS, ssd_chunked,
                                           ssd_chunked_plain, ssd_plan)
 from repro_torch.models.blocks import moe_apply, moe_init
@@ -636,6 +638,182 @@ def test_rglru_one_pass_repeats_and_replays_on_card(T):
         torch.cuda.synchronize()
         for a, b in zip(out, want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# the scans' backward: each kernel against its plain version, every
+# gradient held to 1e-4 of its own largest value (float32; the kernel sums
+# by chunks and over heads in other orders than the plain version)
+SCAN_BWD_TOL = 1e-4
+
+
+def _close_rel(got, want, rel=SCAN_BWD_TOL):
+    assert (got is None) == (want is None)
+    if got is None:
+        return
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = float((got - want.float()).abs().max()) if got.numel() else 0.0
+    top = float(want.abs().max()) if want.numel() else 0.0
+    assert err <= rel * max(top, 1e-30), (err, top)
+
+
+def _ssd_bwd_inputs(dev, Bz, T, H, hd, N, with_init, with_dsf, seed=0):
+    args = _ssd_inputs(dev, Bz, T, H=H, hd=hd, N=N, with_init=with_init,
+                       seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn(Bz, T, H, hd, generator=g, device=dev)
+    dsf = (torch.randn(Bz, H, hd, N, generator=g, device=dev)
+           if with_dsf else None)
+    return (*args, dy, dsf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", STATE_DIMS)
+@pytest.mark.parametrize("T", [1, 16, 32, 33, 100, 1024])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_bwd_kernel_matches_plain_on_card(N, T, with_state):
+    """Every state size, one short chunk (T <= 32, where the forward runs
+    the recurrence), a ragged last chunk and 16 chunks; with an initial
+    state and a final state's adjoint, and with neither (training)."""
+    dev = _card()
+    args = _ssd_bwd_inputs(dev, 2, T, 4, 64, N, with_state, with_state,
+                           seed=T + N)
+    got = ssd_scan.ssd_chunked_bwd(*args)
+    want = ssd_scan.ssd_chunked_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_rel(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz,T,hd,with_state", [
+    (2, 1024, 64, False), (1, 100, 64, True), (2, 100, 48, True),
+    (1, 1, 64, True)])
+def test_ssd_bwd_kernel_at_mamba2_width_on_card(Bz, T, hd, with_state):
+    """mamba2-1.3b's layer (H = 64, hd = 64, N = 128): its training shape
+    cut to B = 2, a ragged T over a state, a ragged head dim (a partial
+    tile of state rows and of head dims), a decode-length step."""
+    dev = _card()
+    args = _ssd_bwd_inputs(dev, Bz, T, 64, hd, 128, with_state, with_state,
+                           seed=T + hd)
+    got = ssd_scan.ssd_chunked_bwd(*args)
+    want = ssd_scan.ssd_chunked_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_rel(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz,T,H,hd,N", [
+    (2, 100, 3, 30, 32), (1, 100, 2, 128, 64), (2, 65, 9, 20, 16),
+    (1, 64, 5, 6, 128)])
+def test_ssd_bwd_kernel_odd_shapes_on_card(Bz, T, H, hd, N):
+    """Head dims off the 4-float copies (30, 6: 4-byte copies throughout),
+    two tiles of state rows and four slices of head dims (128), a partial
+    slice and a ragged last group of heads (20 over 9 heads: groups of 8
+    and 1), T of exactly one chunk."""
+    dev = _card()
+    args = _ssd_bwd_inputs(dev, Bz, T, H, hd, N, True, True, seed=hd + H)
+    got = ssd_scan.ssd_chunked_bwd(*args)
+    want = ssd_scan.ssd_chunked_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_rel(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 100])
+def test_ssd_bwd_kernel_takes_unaligned_views_on_card(T):
+    """x, B and C as views that start off 16 bytes, slices of a wider row
+    as ``ssd_apply`` hands them over (slices of the conv output)."""
+    dev = _card()
+    x, B, C, dt, A, D, s0, dy, dsf = _ssd_bwd_inputs(dev, 2, T, 3, 64, 128,
+                                                     True, True, seed=5)
+    wide = torch.zeros(2, T, 1 + 3 * 64 + 2 * 128, device=dev)
+    wide[..., 1:1 + 3 * 64] = x.reshape(2, T, 3 * 64)
+    wide[..., 1 + 3 * 64:1 + 3 * 64 + 128] = B
+    wide[..., 1 + 3 * 64 + 128:] = C
+    xv = wide[..., 1:1 + 3 * 64].unflatten(-1, (3, 64))
+    Bv = wide[..., 1 + 3 * 64:1 + 3 * 64 + 128]
+    Cv = wide[..., 1 + 3 * 64 + 128:]
+    got = ssd_scan.ssd_chunked_bwd(xv, Bv, Cv, dt, A, D, s0, dy, dsf)
+    want = ssd_scan.ssd_chunked_bwd_plain(x, B, C, dt, A, D, s0, dy, dsf)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_rel(a, b)
+
+
+def _rglru_bwd_inputs(dev, B, T, W, with_init, with_dsf, seed=0):
+    a, x, s0 = _rglru_inputs(dev, B, T, W, with_init, seed=seed)
+    h, _ = rglru_scan_plain(a, x, s0)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dh = torch.randn(B, T, W, generator=g, device=dev)
+    dhf = torch.randn(B, W, generator=g, device=dev) if with_dsf else None
+    return a, h, s0, dh, dhf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W,with_state", [
+    (1, 2112, 4096, False), (1, 2112, 4096, True), (1, 32, 4096, True),
+    (8, 1, 4096, True), (3, 33, 100, True), (1, 64, 4096, True),
+    (2, 130, 100, True), (2, 130, 99, True), (3, 4103, 1000, True)])
+def test_rglru_bwd_kernel_matches_plain_on_card(B, T, W, with_state):
+    """recurrentgemma-9b's width (W = 4096): its training shape (B=1 x
+    2112, 33 chunks looked back over), a suffix, a decode step; a ragged
+    width, exactly one chunk, three chunks with the last ragged, rows not
+    on 16 bytes (4-byte copies), and 65 chunks."""
+    dev = _card()
+    args = _rglru_bwd_inputs(dev, B, T, W, with_state, with_state, seed=T)
+    got = rglru_scan_bwd(*args)
+    want = rglru_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_rel(a, b)
+
+
+@pytest.mark.cuda
+def test_scan_bwd_kernels_are_bitwise_repeatable_on_card():
+    """No float atomics: two calls give the same bits (the resumed-run
+    determinism of training rests on it)."""
+    dev = _card()
+    args = _ssd_bwd_inputs(dev, 2, 1024, 8, 64, 128, True, True, seed=2)
+    first = ssd_scan.ssd_chunked_bwd(*args)
+    second = ssd_scan.ssd_chunked_bwd(*args)
+    rargs = _rglru_bwd_inputs(dev, 2, 2112, 4096, True, True, seed=2)
+    rfirst, rsecond = rglru_scan_bwd(*rargs), rglru_scan_bwd(*rargs)
+    torch.cuda.synchronize()
+    for a, b in zip(first + rfirst, second + rsecond):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True])
+def test_scan_functions_on_card_match_the_cpu(with_init):
+    """``SsdChunkedFn`` and ``RglruScanFn`` on CUDA tensors (both kernels of
+    each) against the same Functions on CPU tensors (the plain versions):
+    outputs and every input's gradient, through ``ops``."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    ssd_args = _ssd_bwd_inputs(dev, 2, 100, 4, 64, 32, with_init, True,
+                               seed=7)
+    rg_args = _rglru_inputs(dev, 2, 130, 256, with_init, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    rg_cot = (torch.randn(2, 130, 256, generator=g, device=dev),
+              torch.randn(2, 256, generator=g, device=dev))
+    for fn, inputs, cot in ((ops.ssd, ssd_args[:7], ssd_args[7:]),
+                            (ops.rglru, rg_args, rg_cot)):
+        results = []
+        for where in (dev, torch.device("cpu")):
+            leaves = [None if t is None else
+                      t.to(where).clone().requires_grad_() for t in inputs]
+            outs = fn(*leaves)
+            sum((o * c.to(where)).sum() for o, c in zip(outs, cot)).backward()
+            results.append(([o.detach().cpu() for o in outs],
+                            [None if t is None else t.grad.cpu()
+                             for t in leaves]))
+        torch.cuda.synchronize()
+        (outs, grads), (wouts, wgrads) = results
+        for a, b in zip(outs + grads, wouts + wgrads):
+            _close_rel(a, b)
 
 
 # the last three families: qwen2-vl-7b's 28 heads padded to 32 over 4 KV

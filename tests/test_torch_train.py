@@ -3,8 +3,9 @@
 same tree), ``Model.loss`` and every parameter's gradient against
 ``jax.value_and_grad(Model.loss)`` for the seven families, one train step
 against JAX's, ``synthetic_batch`` byte for byte, checkpoints across the two
-packages, a resumed run bit for bit, the launcher end to end, and the scan
-kernels' refusal to lose a gradient on the card.
+packages, a resumed run bit for bit, the launcher end to end (``run`` returns
+(state, losses), as JAX's does), and the scan wrappers' refusal of a device
+that has no kernel.
 
 Same weights on both sides: the JAX ``Model.init`` pytree in float32,
 loaded through ``from_jax_params``; gradients come back through
@@ -371,14 +372,14 @@ def test_checkpoint_atomicity(tmp_path, monkeypatch):
 def test_launcher_end_to_end(tmp_path):
     """launch.train drives a (tiny) run with checkpoints on the CPU, then
     resumes from the newest one."""
-    _, losses, _ = train_run("smollm-360m", steps=6, batch=2, seq=16,
-                             ckpt_dir=str(tmp_path), ckpt_every=3,
-                             log_every=0, device="cpu")
+    _, losses = train_run("smollm-360m", steps=6, batch=2, seq=16,
+                          ckpt_dir=str(tmp_path), ckpt_every=3,
+                          log_every=0, device="cpu")
     assert len(losses) == 6 and np.isfinite(losses).all()
     assert latest_step(str(tmp_path)) == 6
-    _, more, _ = train_run("smollm-360m", steps=8, batch=2, seq=16,
-                           ckpt_dir=str(tmp_path), resume=True, log_every=0,
-                           device="cpu")
+    _, more = train_run("smollm-360m", steps=8, batch=2, seq=16,
+                        ckpt_dir=str(tmp_path), resume=True, log_every=0,
+                        device="cpu")
     assert len(more) == 2                        # 6 -> 8
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_run("smollm-360m", steps=1, model_par=2, device="cpu")
@@ -405,16 +406,28 @@ def _meta(*shape):
     return torch.empty(*shape, device="meta")
 
 
-def test_scans_refuse_a_gradient_on_the_card():
-    """The scan kernels have no backward: a tensor off the CPU that needs a
-    gradient raises before any launch instead of losing the gradient."""
-    a = _meta(1, 8, 16).requires_grad_()
-    with pytest.raises(NotImplementedError, match="queue 2 #8"):
-        rglru_scan(a, _meta(1, 8, 16))
-    x = _meta(1, 8, 2, 4).requires_grad_()
-    with pytest.raises(NotImplementedError, match="queue 2 #8"):
-        ssd_scan.ssd_chunked(x, _meta(1, 8, 16), _meta(1, 8, 16),
-                             _meta(1, 8, 2), _meta(2), _meta(2))
-    with torch.no_grad():     # no gradient asked: the usual device check
+def test_scans_have_no_kernel_off_the_card():
+    """A tensor neither on the CPU nor on the card has no kernel: the scan
+    wrappers raise before any launch, with or without a gradient (through
+    their autograd Functions, whose forward calls the wrapper)."""
+    for grad in (False, True):
+        a = _meta(1, 8, 16).requires_grad_(grad)
         with pytest.raises(ValueError, match="no kernel"):
             rglru_scan(a, _meta(1, 8, 16))
+        x = _meta(1, 8, 2, 4).requires_grad_(grad)
+        with pytest.raises(ValueError, match="no kernel"):
+            ssd_scan.ssd_chunked(x, _meta(1, 8, 16), _meta(1, 8, 16),
+                                 _meta(1, 8, 2), _meta(2), _meta(2))
+    with torch.no_grad():     # no gradient asked: the usual device check
+        with pytest.raises(ValueError, match="no kernel"):
+            rglru_scan(_meta(1, 8, 16).requires_grad_(), _meta(1, 8, 16))
+
+
+def test_run_returns_state_and_losses():
+    """``run`` returns exactly (state, losses), as the JAX launcher's
+    ``state, losses = run(...)`` unpacks it: here on mamba2's smoke config,
+    whose SSD gradient goes through ``SsdChunkedFn``."""
+    state, losses = train_run("mamba2-1.3b", steps=2, batch=1, seq=24,
+                              log_every=0, device="cpu")
+    assert isinstance(state, TrainState) and state.step == 2
+    assert len(losses) == 2 and np.isfinite(losses).all()
