@@ -27,7 +27,9 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
 #: the headers under ``csrc/`` each source includes: a change rebuilds it
 DEPS = {"flash_attention": ("attn_split.cuh", "mma_bf16.cuh"),
         "flash_attention_bwd": ("attn_split.cuh", "hopper.cuh"),
-        "decode_attention": ("attn_split.cuh",)}
+        "decode_attention": ("attn_split.cuh",),
+        "ssd_scan": ("tf32x3.cuh",),
+        "ssd_scan_bwd": ("tf32x3.cuh",)}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

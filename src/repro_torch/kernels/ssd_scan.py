@@ -11,8 +11,9 @@ in their epilogue and may write the final state over the initial one
 
 The backward, ``ssd_chunked_bwd`` (``csrc/ssd_scan_bwd.cu``), recomputes
 the chunk-entry states and runs the chunked gradient formulas of
-``ref.ssd_chunked_bwd_plain`` on the float32 CUDA cores; ``SsdChunkedFn``
-binds both to autograd.
+``ref.ssd_chunked_bwd_plain`` with every product on TF32 tensor cores in
+3xTF32, each chunk's states read once; ``SsdChunkedFn`` binds both to
+autograd.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches a kernel or
 raises. ``ssd_chunked.launches`` and ``ssd_chunked_bwd.launches`` count
@@ -255,18 +256,21 @@ def ssd_bwd_cost(Bz: int, T: int, H: int, hd: int, N: int, *,
 SSD_BWD_CHUNK = 64
 
 
-#: heads whose dB/dC terms one block of ``ssd_bwd_bc_kernel`` sums
+#: the most heads one block of ``ssd_bwd_chunk_kernel`` walks, summing
+#: their dB, dC and dG terms on chip
 SSD_BWD_HEAD_GROUP = 8
+
+#: streaming multiprocessors of the H100 the head groups fill
+SSD_BWD_SMS = 132
 
 
 class SsdBwdPlan(NamedTuple):
-    """The float32 scratch of one call of ``csrc/ssd_scan_bwd.cu`` (the
-    kernels size their shared memory themselves)."""
+    """One call of ``csrc/ssd_scan_bwd.cu``: its head group and float32
+    scratch (the kernels size their shared memory themselves)."""
     chunks: int         # nc = ceil(T / 64)
+    group: int          # heads a chunk block walks
     gram: int           # G of every chunk, [Bz, nc, 64, 64]
-    states: int         # s_in and ds of every chunk, each [Bz, nc, H, N, hd]
-    steps: int          # exp(cs) and w, each [Bz, nc * 64, H]
-    dgh: int            # dM o L of every head, [Bz, nc, H, 64, 64]
+    states: int         # s_in and ds of every chunk, each [Bz, nc, H, hd, N]
     part: int           # each chunk's part of dA and dD, [2, Bz, nc, H]
     bcp: int            # each head group's part of dC and dB,
                         # [2, Bz, nc, groups, 64, N]
@@ -275,12 +279,18 @@ class SsdBwdPlan(NamedTuple):
 
 
 def ssd_bwd_plan(Bz: int, T: int, H: int, hd: int, N: int) -> SsdBwdPlan:
+    """Groups of SSD_BWD_HEAD_GROUP heads, halved (down to 2) while the
+    chunk kernel's Bz * nc * groups blocks would leave SMs idle: at a few
+    sequences and chunks, 8 heads a block ran 16 blocks at T = 100."""
     Q = SSD_BWD_CHUNK
     nc = -(-T // Q)
-    groups = -(-H // SSD_BWD_HEAD_GROUP)
-    return SsdBwdPlan(nc, Bz * nc * Q * Q, Bz * nc * H * N * hd,
-                      Bz * nc * Q * H, Bz * nc * H * Q * Q, 2 * Bz * nc * H,
-                      2 * Bz * nc * groups * Q * N, Bz * nc * groups * Q * Q)
+    group = SSD_BWD_HEAD_GROUP
+    while group > 2 and Bz * nc * -(-H // group) < SSD_BWD_SMS:
+        group //= 2
+    groups = -(-H // group)
+    return SsdBwdPlan(nc, group, Bz * nc * Q * Q, Bz * nc * H * hd * N,
+                      2 * Bz * nc * H, 2 * Bz * nc * groups * Q * N,
+                      Bz * nc * groups * Q * Q)
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -288,7 +298,7 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.ssd_scan_bwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 25 + [I] * 6 + [L] * 10 + [P]
+        fn.argtypes = [P] * 22 + [I] * 7 + [L] * 10 + [P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -319,7 +329,7 @@ def ssd_chunked_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if N not in STATE_DIMS:
         raise ValueError(f"ssd_chunked_bwd: state size {N} not in "
                          f"{STATE_DIMS}")
-    x, B, C = _last_dense(x), _last_dense(B), _last_dense(C)
+    x, B, C = _last_dense(x), _rows16(B), _rows16(C)
     A, D, dy = A.contiguous(), D.contiguous(), dy.contiguous()
     init_state = None if init_state is None else init_state.contiguous()
     dsf = None if dsf is None else dsf.contiguous()
@@ -334,24 +344,23 @@ def ssd_chunked_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         return (dx.zero_(), dB.zero_(), dC.zero_(), ddt.zero_(), dA.zero_(),
                 dD.zero_(), ds0)
     plan = ssd_bwd_plan(Bz, T, H, hd, N)
-    gram, s_in, s_out, ecs, wv, dgh, part, bcp, dgp = (
-        new(n) for n in (plan.gram, plan.states, plan.states, plan.steps,
-                         plan.steps, plan.dgh, plan.part, plan.bcp,
-                         plan.dgp))
+    gram, s_in, s_out, part, bcp, dgp = (
+        new(n) for n in (plan.gram, plan.states, plan.states, plan.part,
+                         plan.bcp, plan.dgp))
 
-    # rows of x, dy, B and C on 16 bytes: copied 4 floats at a time
+    # rows of x and dy on 16 bytes: copied 4 floats at a time (B and C rows
+    # are, after _rows16)
     v16 = hd % 4 == 0 and all(
         t.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
-        for t in (x, dy, B, C))
+        for t in (x, dy))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_lib().ssd_scan_bwd(
         *map(ptr, (x, B, C, dt, A, D, init_state, dy, dsf, dx, dB, dC, ddt,
-                   dA, dD, ds0, gram, s_in, s_out, ecs, wv, dgh, part, bcp,
-                   dgp)),
-        Bz, T, H, hd, N, int(v16),
+                   dA, dD, ds0, gram, s_in, s_out, part, bcp, dgp)),
+        Bz, T, H, hd, N, plan.group, int(v16),
         x.stride(0), x.stride(1), x.stride(2), B.stride(0), B.stride(1),
         C.stride(0), C.stride(1), dt.stride(0), dt.stride(1), dt.stride(2),
         stream)

@@ -703,6 +703,22 @@ def test_ssd_bwd_kernel_at_mamba2_width_on_card(Bz, T, hd, with_state):
 
 
 @pytest.mark.cuda
+def test_ssd_bwd_kernel_at_the_train_shape_on_card():
+    """mamba2-1.3b's layer at the batch it trains on the card (B = 4 x
+    1024, H = 64, hd = 64, N = 128; chip_smoke.py phase 5m): every gradient
+    against the plain version, two calls bitwise equal."""
+    dev = _card()
+    args = _ssd_bwd_inputs(dev, 4, 1024, 64, 64, 128, False, False, seed=4)
+    got = ssd_scan.ssd_chunked_bwd(*args)
+    again = ssd_scan.ssd_chunked_bwd(*args)
+    want = ssd_scan.ssd_chunked_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        _close_rel(a, b)
+        assert (a is None and c is None) or torch.equal(a, c)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Bz,T,H,hd,N", [
     (2, 100, 3, 30, 32), (1, 100, 2, 128, 64), (2, 65, 9, 20, 16),
     (1, 64, 5, 6, 128)])

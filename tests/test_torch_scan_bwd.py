@@ -10,6 +10,8 @@ Inputs come from a numpy seed and go to both sides. Tolerance: 2e-5 of each
 gradient's largest value (and 2e-5 relative), float32 on both sides, as
 tests/test_torch_train.py: the formulas sum in other orders than autodiff
 does (by chunks, over heads), ~1e-6 relative apart."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,133 @@ def test_ssd_bwd_plain_at_zero_steps():
     assert torch.equal(got[6], dsf)
     assert not got[4].any() and not got[5].any()
     assert got[0].shape == x.shape and got[3].shape == dt.shape
+
+
+def _tf32(t, rounded=True):
+    """float32 to TF32 (10 mantissa bits): rounded to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` converts, or cut, as the tensor
+    cores read the top 19 bits of an operand (tests/test_torch_ssm.py)."""
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0x1000 if rounded else b) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, splits):
+    """``a @ b`` as the tensor cores take it, float32 accumulation: one
+    product of operands converted to TF32, or the kernels' 3xTF32 (hi = v
+    cut to TF32, lo = v - hi, read cut; lo*hi' + hi*lo' + hi*hi')."""
+    if splits == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a, False), _tf32(b, False)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _ssd_bwd_tf32(x, B, C, dt, A, D, s0, dy, dsf, splits, Q=64):
+    """The CUDA backward's arithmetic on the CPU (csrc/ssd_scan_bwd.cu):
+    the formulas of ``ssd_chunked_bwd_plain`` by chunks of Q steps, every
+    product through ``_tf32_mm`` (the state walk's (x o w)^T B and (dy o
+    exp(cs))^T C, G = C B^T, dy x^T, M^T dy, B ds^T, dy s_in, (x o w) ds,
+    dG B and dG^T C; <dy, C s_in^T> as the rows of C o (dy s_in)), the
+    decays, exponentials and sums in float32."""
+    Bz, T, H, hd = x.shape
+    N = B.shape[-1]
+    nc = -(-T // Q)
+
+    def pad(a):
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2)
+                                       + (0, nc * Q - T))
+    x, B, C, dt, dy = map(pad, (x, B, C, dt, dy))
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    dA, dD = torch.zeros(H), torch.zeros(H)
+    ds0 = torch.zeros(Bz, H, hd, N)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    for b in range(Bz):
+        s_in = torch.zeros(nc, H, hd, N)
+        dso = torch.zeros(nc, H, hd, N)
+        for h in range(H):
+            cs = torch.cumsum(dt[b, :, h].view(nc, Q) * A[h], 1)   # [nc, Q]
+            cq = cs[:, -1]
+            w = torch.exp(cq[:, None] - cs) * dt[b, :, h].view(nc, Q)
+            s = s0[b, h].clone() if s0 is not None else torch.zeros(hd, N)
+            for c in range(nc):
+                q = slice(c * Q, (c + 1) * Q)
+                s_in[c, h] = s
+                s = torch.exp(cq[c]) * s + _tf32_mm(
+                    (x[b, q, h] * w[c, :, None]).T, B[b, q], splits)
+            ds = dsf[b, h].clone() if dsf is not None else torch.zeros(hd, N)
+            for c in reversed(range(nc)):
+                q = slice(c * Q, (c + 1) * Q)
+                dso[c, h] = ds
+                ds = torch.exp(cq[c]) * ds + _tf32_mm(
+                    (dy[b, q, h] * torch.exp(cs[c])[:, None]).T, C[b, q],
+                    splits)
+            ds0[b, h] = ds
+        for c in range(nc):
+            q = slice(c * Q, (c + 1) * Q)
+            Bc, Cc = B[b, q], C[b, q]
+            G = _tf32_mm(Cc, Bc.T, splits) * causal
+            dG, dCg, dBg = torch.zeros(Q, Q), torch.zeros(Q, N), \
+                torch.zeros(Q, N)
+            for h in range(H):
+                xc, yc, dtc = x[b, q, h], dy[b, q, h], dt[b, q, h]
+                cs = torch.cumsum(dtc * A[h], 0)
+                cq = cs[-1]
+                w, ecs = torch.exp(cq - cs) * dtc, torch.exp(cs)
+                E = torch.exp((cs[:, None] - cs[None, :])
+                              .masked_fill(~causal, -math.inf))
+                L = E * dtc[None, :]
+                M = G * L
+                dM = _tf32_mm(yc, xc.T, splits) * causal
+                bds = _tf32_mm(Bc, dso[c, h].T, splits)
+                P = _tf32_mm(yc, s_in[c, h], splits)
+                dx[b, q, h] = (_tf32_mm(M.T, yc, splits) + w[:, None] * bds
+                               + D[h] * yc)
+                dBg += _tf32_mm(xc * w[:, None], dso[c, h], splits)
+                dCg += ecs[:, None] * P
+                dG += dM * L
+                dw = (xc * bds).sum(1)
+                LL = dM * M
+                dcs = (LL.sum(1) - LL.sum(0) + ecs * (Cc * P).sum(1)
+                       - dw * w)
+                dcs[-1] += (dw * w).sum() + torch.exp(cq) * (
+                    dso[c, h] * s_in[c, h]).sum()
+                S = torch.flip(torch.cumsum(torch.flip(dcs, [0]), 0), [0])
+                ddt[b, q, h] = ((dM * G * E).sum(0)
+                                + dw * torch.exp(cq - cs) + A[h] * S)
+                dA[h] += (dtc * S).sum()
+                dD[h] += (xc * yc).sum()
+            dC[b, q] = _tf32_mm(dG, Bc, splits) + dCg
+            dB[b, q] = _tf32_mm(dG.T, Cc, splits) + dBg
+    return (dx[:, :T], dB[:, :T], dC[:, :T], ddt[:, :T], dA, dD,
+            None if s0 is None else ds0)
+
+
+def test_3xtf32_backward_holds_1e4_of_each_gradient():
+    """The numerical premise of the tensor-core SSD backward, at mamba2's
+    widths (hd 64, N 128), the adjoint carried over 5 chunks: with every
+    product in 3xTF32 each gradient stays within the kernel's 1e-4 of its
+    largest value of the plain version's and of ``jax.vjp`` of what JAX
+    differentiates (~1e-6 apart); with one TF32 product every gradient
+    that goes through a product misses it (1.7e-4 to 4.4e-4 apart), all
+    but dD, the sum of x o dy in float32."""
+    arrs = _ssd_inputs(1, 300, 128, True, H=2, hd=64, seed=13)
+    x, B, C, dt, A, D, s0, dy, dsf = _t(arrs)
+    want = ssd_chunked_bwd_plain(x, B, C, dt, A, D, s0, dy, dsf)
+    jwant = _jax_vjp(jref.ssd_dual, arrs[:7], arrs[7:])
+    got3 = _ssd_bwd_tf32(x, B, C, dt, A, D, s0, dy, dsf, splits=3)
+    got1 = _ssd_bwd_tf32(x, B, C, dt, A, D, s0, dy, dsf, splits=1)
+    for g3, w, jw in zip(got3, want, jwant):
+        _close(g3, w, 1e-4)
+        _close(g3, jw, 1e-4)
+    missed = []
+    for name, g1, w in zip(("dx", "dB", "dC", "ddt", "dA", "dD", "ds0"),
+                           got1, want):
+        try:
+            _close(g1, w, 1e-4)
+        except AssertionError:
+            missed.append(name)
+    assert missed == ["dx", "dB", "dC", "ddt", "dA", "ds0"], missed
 
 
 # ------------------------------------------------------------ RG-LRU plain
@@ -247,15 +376,26 @@ def test_backward_wrappers_take_the_plain_version_on_the_cpu():
 def test_ssd_bwd_plan_sizes_the_scratch(N):
     """The scratch holds every chunk of mamba2-1.3b's training batch (B=8 x
     1024: 16 chunks of 64 steps, 64 heads in 8 groups of 8), a ragged last
-    chunk counted whole."""
+    chunk counted whole: the chunk-entry states and their adjoints, G, the
+    chunks' parts of dA and dD and the head groups' parts of dC, dB and dG
+    (no per-head dG, no per-step decays: the chunk kernel keeps those on
+    chip)."""
     plan = ssd_bwd_plan(8, 1024, 64, 64, N)
-    assert plan.chunks == 16
-    assert plan.states == 8 * 16 * 64 * N * 64
+    assert plan._fields == ("chunks", "group", "gram", "states", "part",
+                            "bcp", "dgp")
+    assert plan.chunks == 16 and plan.group == 8
+    assert plan.states == 8 * 16 * 64 * 64 * N
+    assert plan.part == 2 * 8 * 16 * 64
     assert plan.gram == 8 * 16 * 64 * 64
     assert plan.bcp == 2 * 8 * 16 * 8 * 64 * N
     assert plan.dgp == 8 * 16 * 8 * 64 * 64
     assert ssd_bwd_plan(1, 1, 1, 64, N).chunks == 1
-    assert ssd_bwd_plan(1, 100, 3, 64, N).dgp == 2 * 64 * 64
+    # a few sequences and chunks: smaller groups, more blocks (2 chunks x
+    # 32 groups of 2 heads at one ragged sequence of mamba2's 64 heads)
+    small = ssd_bwd_plan(1, 100, 64, 64, N)
+    assert small.group == 2 and small.dgp == 2 * 32 * 64 * 64
+    assert ssd_bwd_plan(4, 1024, 64, 64, N).group == 8
+    assert ssd_bwd_plan(1, 100, 3, 64, N).dgp == 2 * 2 * 64 * 64
 
 
 def test_backward_costs_count_each_byte_once():

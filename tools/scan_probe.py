@@ -1,7 +1,8 @@
 """Probe the two scan kernels on one CUDA card (H100, sm_90a).
 
-    python3 tools/scan_probe.py [--parent DIR] [--serve] [--ablate]
-                                [--timeline] [--out FILE]
+    python3 tools/scan_probe.py [--parent DIR] [--serve] [--bwd]
+                                [--bwd-ablate] [--ablate] [--timeline]
+                                [--out FILE]
 
 Times ``ssd_chunked`` and ``rglru_scan`` at the serving shapes of
 mamba2-1.3b (H=64, hd=64, N=128) and recurrentgemma-9b (W=4096), float32,
@@ -18,7 +19,14 @@ With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 this tree, this tree, parent, and both sides' times are printed case by
 case. ``--serve`` runs chip_smoke.py's phase 3b (mamba2-1.3b served) on
 each side in the same order: wall time, device busy time, the SSD
-kernels', memcpys' and copy kernels' device time. ``--ablate`` then times
+kernels', memcpys' and copy kernels' device time. ``--bwd`` times each
+kernel of ``ssd_chunked_bwd`` apart at row 3bwd's shape (mamba2-1.3b's
+layer in phase 5m: Bz=4, T=1024), device time a call by
+``torch.profiler`` over the kernels named ``ssd_bwd_*``, with the whole
+call's CUDA-graph time, on each side in the same order;
+``--bwd-ablate`` the same for builds of ``csrc/ssd_scan_bwd.cu`` with one
+change each (``BWD_ABLATIONS``), each checked against the plain version
+first. ``--ablate`` then times
 the dual form at T=256 and T=32 and rglru at T=2112 in builds of their
 sources with one change each (``ABLATIONS``), ``--timeline`` the dual
 form's stages in one block by ``clock64``. Prints the card's name and
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -77,6 +86,177 @@ def child(src: Path) -> dict:
     return times
 
 
+#: row 3bwd's shape: (Bz, T); H, hd, N are mamba2-1.3b's
+BWD_SHAPE = (4, 1024)
+BWD_CALLS = 5
+
+
+#: rows 3bwd-r and 3bwd-s: (name, Bz, T), with an initial state and a final
+#: state's adjoint
+BWD_SMALL = [("3bwd-r T=100 init", 1, 100), ("3bwd-s T=16 init", 1, 16)]
+
+
+def _bwd_args(Bz=BWD_SHAPE[0], T=BWD_SHAPE[1], with_state=False):
+    """Inputs as chip_smoke.py's ``ssd_bwd_case`` makes them."""
+    import chip_smoke as cs
+    x, B, C, dt, A, D, s0 = cs.ssd_inputs(Bz, T, with_init=with_state,
+                                          seed=Bz * 1000 + T + 1)
+    g = torch.Generator(device="cuda").manual_seed(T + 2)
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    dsf = (torch.randn(s0.shape, generator=g, device="cuda") if with_state
+           else None)
+    return (x, B, C, dt, A, D, s0, dy, dsf)
+
+
+def bwd_child(src: Path) -> dict:
+    """Device ms a call of each ``ssd_bwd_*`` kernel (``torch.profiler``,
+    BWD_CALLS calls) and of the whole ``ssd_chunked_bwd`` (graph replay)
+    at row 3bwd's shape, and the graph time of rows 3bwd-r and 3bwd-s,
+    with the package under ``src``."""
+    sys.path.insert(0, str(src))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels.ssd_scan import ssd_chunked_bwd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _bwd_args()
+    out = _bwd_times(lambda: ssd_chunked_bwd(*args))
+    for name, Bz, T in BWD_SMALL:
+        small = _bwd_args(Bz, T, with_state=True)
+        out[f"{name} (graph)"] = cs.graph_ms(lambda: ssd_chunked_bwd(*small))
+    return out
+
+
+def _bwd_times(call) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    out = {"ssd_chunked_bwd (graph)": cs.graph_ms(call)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(BWD_CALLS):
+            call()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        m = re.search(r"ssd_bwd_\w+?_kernel", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m.group(0)] = (out.get(m.group(0), 0.0)
+                               + e.self_device_time_total / 1e3 / BWD_CALLS)
+    return out
+
+
+def _source(name: str) -> str:
+    """``csrc/<name>.cu`` with the headers it includes from ``csrc/``
+    inlined, so that a changed copy builds anywhere."""
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    for dep in _build.DEPS.get(name, ()):
+        text = text.replace(f'#include "{dep}"',
+                            (_build.CSRC / dep).read_text())
+    return text
+
+
+# Builds of csrc/ssd_scan_bwd.cu with one change each: (the text to
+# replace, its replacement, the wrapper module's constants to set beside;
+# no text: this tree's build with the constants). The "no ..." builds are
+# timings only: their results are wrong.
+BWD_ABLATIONS = {
+    "states, 32 rows a block": ("constexpr int kRows = 64;",
+                                "constexpr int kRows = 32;", {}),
+    "states, one block an SM": (
+        "__launch_bounds__(2 * N, 2) ssd_bwd_states_kernel",
+        "__launch_bounds__(2 * N) ssd_bwd_states_kernel", {}),
+    "chunk, (b) and (c) in two accumulator chains each": (
+        "    float mdy[4] = {}, bds[4] = {};",
+        "    Acc mdy, bds;\n    mdy.zero();\n    bds.zero();", {}),
+    "chunk, 4 heads a block": (None, None, {"SSD_BWD_HEAD_GROUP": 4}),
+    # timing only (wrong results): one part of a kernel left out
+    "states, no products": (
+        "for (int mt = 0; mt < kMT; ++mt) mma3(s[mt][j], af[mt], bf);", "",
+        {}),
+    "chunk, no (a) dy x^T": ("mma3(dM[q], af, bf);", "", {}),
+    "chunk, no (b) M^T dy": ("mma3(mdy, af, bf);", "", {}),
+    "chunk, no (c) B ds^T": ("mma3(bds, af, bf);", "", {}),
+    "chunk, no (d) (e) dy s_in, (x o w) ds": ("""          mma3(P[j], ay, bs);
+          load_b_kn(bd, &sm.dst[buf][0][0], kBs, n0, k0, lane);
+          mma3(dBg[j], ax, bd);""", "", {}),
+    "chunk, no head epilogue": ("    if (sl == ns - 1) {",
+                                "    if (false) {", {}),
+    "chunk, no exp in M": ("sm.g[t][s] * expf(sm.cs[t] - sm.cs[s]) * sm.dt[s]",
+                           "sm.g[t][s] * sm.dt[s]", {}),
+    "chunk, no closing warp": ("      if (warp == 0) {\n        const float cq",
+                               "      if (false) {\n        const float cq",
+                               {}),
+
+}
+
+
+def bwd_ablate() -> dict:
+    """This tree's ``ssd_chunked_bwd`` and each build in BWD_ABLATIONS,
+    all compiled at once, at row 3bwd's shape: each gradient's largest
+    error against the plain version (relative to its largest value), then
+    the times of ``_bwd_times``. Prints each build's registers and
+    spills."""
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import ctypes
+    from repro_torch.kernels import _build, ssd_scan
+    out = _build.BUILD_DIR / "ablate"
+    out.mkdir(parents=True, exist_ok=True)
+    text = _source("ssd_scan_bwd")
+    procs = {}
+    for name, (old, new, _) in BWD_ABLATIONS.items():
+        if old is None:
+            continue
+        if text.count(old) != 1:
+            raise SystemExit(f"scan_probe: {name!r} no longer applies")
+        cu = out / f"bwd_{re.sub(r'[^a-z0-9]+', '_', name)}.cu"
+        cu.write_text(text.replace(old, new))
+        procs[name] = (cu, subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-o", str(cu.with_suffix(".so")),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    own = _build.load("ssd_scan_bwd")
+    builds = [("this tree", own, {})] + [
+        (name, own, consts) for name, (old, _, consts) in BWD_ABLATIONS.items()
+        if old is None]
+    for name, (cu, proc) in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log_text}")
+        for line in log_text.splitlines():
+            if "registers" in line or ("spill" in line and " 0 bytes spill s"
+                                       not in line):
+                print(f"    {name}: {line.strip()}", flush=True)
+        builds.append((name, ctypes.CDLL(str(cu.with_suffix(".so"))),
+                       BWD_ABLATIONS[name][2]))
+    args = _bwd_args()
+    want = ssd_scan.ssd_chunked_bwd_plain(*args)
+    result = {}
+    try:
+        for name, lib, consts in builds:
+            saved = {k: getattr(ssd_scan, k) for k in consts}
+            for k, v in consts.items():
+                setattr(ssd_scan, k, v)
+            _build._loaded["ssd_scan_bwd"] = lib
+            lib.ssd_scan_bwd.argtypes = None
+            ssd_scan._bwd_lib()
+            got = ssd_scan.ssd_chunked_bwd(*args)
+            err = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(got, want) if b is not None)
+            r = {"max_rel_err": err,
+                 **_bwd_times(lambda: ssd_scan.ssd_chunked_bwd(*args))}
+            result[name] = r
+            print(f"  3bwd, {name}: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in r.items()), flush=True)
+            for k, v in saved.items():
+                setattr(ssd_scan, k, v)
+    finally:
+        _build._loaded["ssd_scan_bwd"] = own
+        own.ssd_scan_bwd.argtypes = None
+        ssd_scan._bwd_lib()
+    return result
+
+
 # Builds of a source with one change each, to see what a kernel's time is
 # made of: (source, text to replace, its replacement, the wrapper module's
 # constants to set beside). Their numbers are timings only: "tf32 once"
@@ -122,7 +302,7 @@ def ablate() -> dict:
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (source, old, new, _) in ABLATIONS.items():
-        text = (_build.CSRC / f"{source}.cu").read_text()
+        text = _source(source)
         if old not in text:
             raise SystemExit(f"scan_probe: {name!r} no longer applies")
         cu = out / f"{name.replace(' ', '_').replace(',', '')}.cu"
@@ -213,7 +393,7 @@ def timeline() -> dict:
     import ctypes
     import chip_smoke as cs
     from repro_torch.kernels import _build, ssd_scan
-    text = (_build.CSRC / "ssd_scan.cu").read_text()
+    text = _source("ssd_scan")
     edits = [("namespace dual {\n", "namespace dual {\n" + PROBE_HEAD),
              ("  const int nc = (T + kQ - 1) / kQ;\n",
               "  const int nc = (T + kQ - 1) / kQ;\n"
@@ -328,6 +508,12 @@ def main() -> int:
                     help="also stamp the dual form's stages (one block)")
     ap.add_argument("--serve", action="store_true",
                     help="also time chip_smoke's phase 3b on each side")
+    ap.add_argument("--bwd", action="store_true",
+                    help="also time ssd_chunked_bwd's kernels apart")
+    ap.add_argument("--bwd-ablate", action="store_true",
+                    help="also time the builds in BWD_ABLATIONS")
+    ap.add_argument("--bwd-child", type=Path, default=None,
+                    help=argparse.SUPPRESS)  # src dir of one side's --bwd
     ap.add_argument("--child", type=Path, default=None,
                     help=argparse.SUPPRESS)  # src dir of one side's run
     ap.add_argument("--serve-child", type=Path, default=None,
@@ -341,6 +527,9 @@ def main() -> int:
         return 0
     if args.serve_child is not None:
         print(json.dumps(serve_child(args.serve_child)))
+        return 0
+    if args.bwd_child is not None:
+        print(json.dumps(bwd_child(args.bwd_child)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -374,6 +563,19 @@ def main() -> int:
               f"{r['busy_s']:.3f} s; device ms (calls): " + ", ".join(
                   f"{k} {v[0]:.2f} ({v[1]})" for k, v in r.items()
                   if isinstance(v, list) and v[1]), flush=True)
+    bwd = {}
+    for label, src in (sides if args.bwd else []):
+        out = subprocess.run([sys.executable, __file__, "--bwd-child",
+                              str(src)], capture_output=True, text=True,
+                             check=True)
+        bwd.setdefault(label, []).append(
+            json.loads(out.stdout.strip().splitlines()[-1]))
+    for k in sorted({k for rs in bwd.values() for r in rs for k in r}):
+        cols = [f"{label} " + " ".join(f"{r[k]:.4f}" if k in r else "-"
+                                       for r in rs)
+                for label, rs in bwd.items()]
+        print(f"  3bwd {k}: " + " | ".join(cols) + " ms", flush=True)
+    bwd_ablations = bwd_ablate() if args.bwd_ablate else {}
     stages = timeline() if args.timeline else {}
     ablations = ablate() if args.ablate else {}
     for c, ms in ablations.items():
@@ -381,7 +583,8 @@ def main() -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "runs": runs,
-                                        "serve": serve,
+                                        "serve": serve, "bwd": bwd,
+                                        "bwd_ablations": bwd_ablations,
                                         "ablations": ablations,
                                         "timeline": stages}, indent=1))
     return 0
