@@ -96,13 +96,42 @@ Phases, in order; any failure exits non-zero before a result is printed:
      profiled (the shares of the SSD forward and backward); 5r:
      recurrentgemma-9b at full width cut to depth 6 (B=1 x 2112, past the
      window): 3 steps, the launches of both RG-LRU and both attention
-     kernels, a warm step timed and one profiled.
+     kernels, a warm step timed and one profiled;
+  6. mesh — the port sharded over ``torch.distributed``; the card machine
+     has one H100 and NCCL takes one rank a device, so the multi-rank
+     phases put 2 or 4 ranks (spawned processes, ``launch.mesh.spawn``)
+     on the one card over gloo, whose collectives go through host memory
+     (their times are not NCCL's); references run here first and free the
+     card. 6k: the attention kernels at a rank's heads (smollm's 8 of 16
+     query heads over its 5 KV heads, forward with the lse and backward at
+     B=4 x 1024, and decode; deepseek-moe's 8 MHA heads at D=128), as
+     phase 2's rows; 6.0: a (1, 1) mesh over NCCL at world size 1,
+     full-width smollm-360m's bf16 logits and greedy tokens bitwise those
+     of no mesh; 6a: full-width full-depth smollm-360m at (1, 2) and
+     (2, 2), float32 logits within 1e-3 of one rank's and 8 greedy tokens
+     equal, at (2, 2) the loss and every logical gradient at 4t's depth
+     and batch, bf16 training at B=8 x 1024 (3 steps, a checkpoint at 2,
+     step 0's batch's loss lower after them, a warm step timed, each
+     rank's peak memory) and the checkpoint resumed at (1, 1) here, its
+     step's loss the sharded run's to 1e-3; 6b: full-width deepseek-moe-16b
+     with classic EP at (1, 2) and 2D EP at (2, 2), at depth 4 in float32
+     held to the one-process emulation of the same EP (``EPEmulation``,
+     router choices compared), then at full depth in bf16 the first 8 of
+     3a's prompts prefilled and decoded 8 greedy steps (both MoE
+     branches), with the pairs dropped, the ``all_to_all`` bytes and each
+     rank's peak memory; at (2, 2) the two data rows' copies of the first
+     4 prompts, served again with the EP sums in rank order
+     (``OrderedEPSum``), bitwise equal. Any rank's failure fails the
+     phase.
+``python3 chip_smoke.py --mesh-only`` runs phases 1 and 6 alone and prints
+no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1591,10 +1620,11 @@ def _admit(model, caches, n):
 class RoutingLog:
     """Within ``with``, every ``_route`` call records the chosen experts
     (sorted per token) and the smallest margin between the top-k-th and the
-    next expert's probability."""
+    next expert's probability (``calls``), and each token's margin
+    (``margins``)."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.margins = [], []
 
     def __enter__(self):
         from repro_torch.models import blocks
@@ -1604,8 +1634,10 @@ class RoutingLog:
             gates, idx = inner(x_flat, router, top_k)
             probs = torch.softmax(x_flat.float() @ router, dim=-1)
             top = torch.topk(probs, top_k + 1, dim=-1).values
+            margin = (top[:, -2] - top[:, -1]).cpu()
             self.calls.append((idx.sort(-1).values.cpu(),
-                               float((top[:, -2] - top[:, -1]).min())))
+                               float(margin.min())))
+            self.margins.append(margin)
             return gates, idx
         blocks._route = route
         return self
@@ -2144,6 +2176,651 @@ def phase_train_hybrid(steps=3):
     return launches
 
 
+# ------------------------------------------------------------------ phase 6
+#: every rank of a mesh phase runs on the one card; gloo carries the
+#: collectives through host memory (NCCL takes one rank a device)
+P6_DEVICE = "cuda:0"
+#: greedy decode steps of the mesh phases
+P6_STEPS = 8
+#: 6a's training: phase 5's optimizer settings
+P6_TRAIN = dict(lr=1e-3, warmup=10, seed=0)
+#: 6b's prompts served again with the EP sums in rank order (the fourth of
+#: odd length)
+P6_WITNESS = 4
+
+
+def _p6_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+
+
+def _p6_ctx(model_par, ep_axes=("model",)):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.sharding import ShardCtx
+    return ShardCtx(mesh=make_mesh_for(dist.get_world_size(), model_par),
+                    ep_axes=tuple(ep_axes))
+
+
+def _seeded(cfg, dtype, dev, ctx=None):
+    """``cfg``'s weights from seed 0 drawn on ``dev``: under a mesh, the
+    rank's shard of the same logical weights."""
+    from repro_torch.models import build_model
+    return build_model(cfg, device=dev, dtype=dtype, ctx=ctx,
+                       generator=torch.Generator(dev).manual_seed(0))
+
+
+def _grow(caches, extra):
+    """Prefill caches with ``extra`` more positions of K/V to decode into."""
+    import torch.nn.functional as F
+    return [[{"mix": {k: F.pad(v, (0, 0, 0, 0, 0, extra))
+                      for k, v in lay["mix"].items()}} for lay in seg]
+            for seg in caches]
+
+
+@torch.no_grad()
+def _decode(model, tokens, steps, feed=None):
+    """Prefill ``tokens`` [B, T] (numpy), then ``steps`` decode steps fed the
+    greedy picks or ``feed`` [B, steps]. Returns the real vocab's logits of
+    each call (float32, on the host) and the picks [B, steps + 1]."""
+    dev, vocab = model.device, model.cfg.vocab
+    toks = torch.as_tensor(tokens, device=dev)
+    lg, caches = model.prefill({"tokens": toks})
+    caches = _grow(caches, steps)
+    outs, picks = [lg], [lg[:, 0, :vocab].argmax(-1)]
+    for s in range(steps):
+        tok = (picks[-1][:, None] if feed is None else
+               torch.as_tensor(feed[:, s:s + 1], device=dev))
+        lg, caches = model.decode_step(caches, tok, toks.shape[1] + s)
+        outs.append(lg)
+        picks.append(lg[:, 0, :vocab].argmax(-1))
+    return ([o[..., :vocab].float().cpu() for o in outs],
+            torch.stack(picks, 1).cpu())
+
+
+def _serve_launches():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention}
+
+
+def _rows(t, ctx):
+    """A rank's rows joined over "data" (when the data axis split them)."""
+    from repro_torch.models.sharding import all_gather
+    return all_gather(t, ctx, ctx.batch_axes, 0)
+
+
+def _peak(dev):
+    """The device's peak memory in GB since the last ``_reset``."""
+    dev = torch.device(dev)
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def _reset(dev):
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _sync(dev):
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ep_emulation(p, x, cfg, mode, mesh, ep_axes):
+    """The expert-parallel MoE of ``mesh`` = (data, model) with EP over
+    ``ep_axes``, in one process, on a layer's whole expert bank and the
+    logical batch ``x`` (the routed experts only): the branch
+    ``blocks.moe_apply`` takes on that mesh, each virtual shard's tokens
+    (its batch rows, or all of them where ``data`` does not divide them,
+    and its sequence block), the same capacities and drops, the shards'
+    bodies run in turn with the ``all_to_all`` a transpose between them,
+    and the ``psum`` a sum in rank order. Returns (y, pairs dropped)."""
+    from repro_torch.models import blocks
+    data, m = mesh
+    sizes = {"data": data, "model": m}
+    ep = math.prod(sizes[a] for a in ep_axes)
+    B, T, D = x.shape
+    E = p.w_in.shape[0]
+    if ep == 1 or E % ep:
+        return (blocks._moe_token_gather if mode == "decode"
+                else blocks._moe_local)(p, x, cfg), 0
+    E_loc = E // ep
+    split_rows = B % data == 0
+    nb = B // data if split_rows else B
+
+    def rows(d):
+        return x[d * nb:(d + 1) * nb] if split_rows else x
+
+    def ep_index(d, j):
+        return d * m + j if "data" in ep_axes else j
+
+    def bank(i):
+        return (p.w_in[i * E_loc:(i + 1) * E_loc],
+                p.w_gate[i * E_loc:(i + 1) * E_loc],
+                p.w_out[i * E_loc:(i + 1) * E_loc])
+
+    groups = ([[(d, j) for d in range(data) for j in range(m)]]
+              if "data" in ep_axes else
+              [[(d, j) for j in range(m)] for d in range(data)])
+    if T % m == 0:
+        tl, out, dropped = T // m, {}, 0
+        for group in groups:
+            xs = {s: rows(s[0])[:, s[1] * tl:(s[1] + 1) * tl].reshape(-1, D)
+                  for s in group}
+            sends = {s: blocks._ep_send(xs[s], p.router, cfg, E_loc, ep)
+                     for s in group}
+            ys = [blocks._ep_experts(
+                *bank(ep_index(*dst)),
+                torch.stack([sends[s][0][k] for s in group]),
+                torch.stack([sends[s][1][k] for s in group]))
+                for k, dst in enumerate(group)]
+            for i, s in enumerate(group):
+                out[s] = blocks._ep_combine(torch.stack([y[i] for y in ys]),
+                                            sends[s][2]).reshape(-1, tl, D)
+                dropped = dropped + (sends[s][2][2]
+                                     == sends[s][0].shape[1]).sum()
+        ys_d = [torch.cat([out[(d, j)] for j in range(m)], 1)
+                for d in range(data)]
+        return (torch.cat(ys_d, 0) if split_rows else ys_d[0]), dropped
+    outs = []
+    for group in groups:
+        xf = (x if "data" in ep_axes else rows(group[0][0])).reshape(-1, D)
+        y = None
+        for s in group:
+            part = blocks._ep_partial(*bank(ep_index(*s)), p.router, xf, cfg,
+                                      ep_index(*s) * E_loc, mode)
+            y = part if y is None else y + part
+        outs.append(y.reshape(-1, T, D))
+    if "data" in ep_axes or not split_rows:
+        return outs[0], 0
+    return torch.cat(outs, 0), 0
+
+
+class EPEmulation:
+    """Within ``with``, the MoE layers of a model built with no mesh run
+    ``ep_emulation`` of ``mesh`` (their shared experts as they are): the
+    reference 6b holds a sharded run to. ``lm.moe_apply`` is patched, as
+    ``RoutingLog`` patches ``blocks._route``."""
+
+    def __init__(self, mesh, ep_axes):
+        self.mesh, self.ep_axes = tuple(mesh), tuple(ep_axes)
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self._inner = lm.moe_apply
+
+        def moe_apply(p, x, *, cfg, mode, ctx=None):
+            y = ep_emulation(p, x, cfg, mode, self.mesh, self.ep_axes)[0]
+            return y if p.shared is None else y + p.shared(x, ctx)
+        lm.moe_apply = moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import lm
+        lm.moe_apply = self._inner
+
+
+class OrderedEPSum:
+    """Within ``with``, the MoE's sum over the EP ranks (``blocks``'s
+    ``reduce_from`` over ``ctx.ep_axes``) is an ``all_gather`` summed in
+    rank order: every element in the same order, wherever it lies, where
+    an ``all_reduce`` over more than two ranks sums each chunk of the
+    tensor in an order of its own. 6b's witness of where the two data
+    rows' copies of a prompt part."""
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        from repro_torch.models.sharding import all_gather
+        self._inner = inner = blocks.reduce_from
+
+        def reduce_from(x, ctx, axes):
+            if ctx is None or tuple(axes) != tuple(ctx.ep_axes):
+                return inner(x, ctx, axes)
+            parts = all_gather(x[None], ctx, axes, 0)
+            y = parts[0]
+            for part in parts[1:]:
+                y = y + part
+            return y
+        blocks.reduce_from = reduce_from
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.reduce_from = self._inner
+
+
+def p6_nccl_rank(rank, dev, cfg, prompts, steps):
+    """6.0 on its rank: ``cfg`` (full-width smollm-360m) in bf16 on a
+    (1, 1) mesh."""
+    import torch.distributed as dist
+    _p6_setup()
+    ctx = _p6_ctx(1)
+    model = _seeded(cfg, torch.bfloat16, dev, ctx)
+    logits, picks = _decode(model, prompts, steps)
+    return (dist.get_backend(), dict(ctx.mesh.shape),
+            [x.numpy() for x in logits], picks.numpy())
+
+
+def p6_smollm_rank(rank, dev, cfg, model_par, prompts, steps, grads, ckpt,
+                   train_bt):
+    """6a on its rank: ``cfg`` (full-width full-depth smollm-360m) in
+    float32 on the mesh (prefill logits and greedy tokens of ``prompts``,
+    the batch's rows split over "data"); with ``grads`` (B, T) the loss and
+    every gradient of ``cfg`` at depth 2 in float32; with ``ckpt`` 3 bf16
+    train steps at full depth, ``train_bt`` = (B, T), through the
+    launcher's loop on the mesh, a checkpoint at step 2, then one warm step
+    timed."""
+    import dataclasses
+
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.shardings import (gather_state, grad_sum_axes,
+                                              model_splits, shard_batch)
+    from repro_torch.training.trainer import sync_grads
+    _p6_setup()
+    ctx = _p6_ctx(model_par)
+    out = {"rank": rank, "coords": {a: ctx.mesh.coord(a) for a in
+                                    ctx.mesh.names}}
+    wrappers = _serve_launches()
+    for fn in wrappers.values():
+        fn.launches = 0
+    _reset(dev)
+    model = _seeded(cfg, torch.float32, dev, ctx)
+    local = shard_batch({"tokens": torch.from_numpy(prompts)}, ctx)["tokens"]
+    t0 = time.perf_counter()
+    logits, picks = _decode(model, local.numpy(), steps)
+    _sync(dev)
+    out["serve_s"] = time.perf_counter() - t0
+    out["logits"] = [_rows(x, ctx).numpy() for x in logits]
+    out["picks"] = _rows(picks, ctx).numpy()
+    out["launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    out["peak_serve"] = _peak(dev)
+    del model
+    torch.cuda.empty_cache()
+    if grads is not None:
+        B, T = grads
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        model = _seeded(cfg2, torch.float32, dev, ctx)
+        model.requires_grad_(True)
+        batch = launch.synthetic_batch(cfg2, B, T, seed=0, step=0, device=dev)
+        loss = model.loss(shard_batch(batch, ctx))
+        loss.backward()
+        shards = model_splits(model)
+        g = sync_grads({n: p.grad for n, p in model.named_parameters()},
+                       {n: grad_sum_axes(n, s, cfg2, ctx)
+                        for n, s in shards.items()}, ctx)
+        g = gather_state(g, shards, ctx)
+        out["loss"] = float(loss.detach())
+        if rank == 0:
+            out["grads"] = {n: t.float().numpy() for n, t in g.items()}
+        del model, g, loss
+        torch.cuda.empty_cache()
+    if ckpt:
+        for fn in wrappers.values():
+            fn.launches = 0
+        from repro_torch.kernels import flash_attention as fa
+        fa.flash_attention_bwd.launches = 0
+        _reset(dev)
+        B, T = train_bt
+        t0 = time.perf_counter()
+        state, losses, step_fn = launch.train_loop(
+            cfg, steps=3, batch=B, seq=T, **P6_TRAIN, ckpt_dir=ckpt,
+            ckpt_every=2, log_every=0, device=dev, ctx=ctx)
+        _sync(dev)
+        out["train_s"] = time.perf_counter() - t0
+        out["losses"] = losses
+        out["train_launches"] = {"flash_attention": fa.flash_attention
+                                 .launches, "flash_attention_bwd":
+                                 fa.flash_attention_bwd.launches}
+        # a warm step over step 0's batch again: its loss, before this
+        # step's update, is that batch's after the 3 steps
+        batch = shard_batch(launch.synthetic_batch(cfg, B, T, 0, 0,
+                                                   device=dev), ctx)
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        _sync(dev)
+        out["warm_ms"] = (time.perf_counter() - t0) * 1e3
+        out["again"] = float(met["loss"])
+        out["peak_train"] = _peak(dev)
+        del state, step_fn
+    return out
+
+
+def _route_flips(rank_calls, emu_calls, group):
+    """Tokens whose experts differ between a rank's router calls and the
+    emulation's of the same tokens: the emulation routes each of the
+    ``group`` virtual shards of an EP group in turn, the first being rank
+    0's. Returns (calls compared, tokens flipped, the flipped tokens'
+    margins on the rank, the rank's smallest margin)."""
+    flips, margins = 0, []
+    mine = emu_calls[::group]
+    assert len(mine) == len(rank_calls), (len(mine), len(rank_calls))
+    for (ri, _, rm), (ei, _) in zip(rank_calls, mine):
+        ri, rm, ei = np.asarray(ri), np.asarray(rm), np.asarray(ei)
+        n = min(ri.shape[0], ei.shape[0])
+        differ = (ri[:n] != ei[:n]).any(-1)
+        flips += int(differ.sum())
+        margins += rm[:n][differ].tolist()
+    return (len(rank_calls), flips, margins,
+            min(c[1] for c in rank_calls))
+
+
+def p6_moe_rank(rank, dev, full, model_par, ep_axes, check, feed, prompts,
+                steps, witness):
+    """6b on its rank: ``full`` (deepseek-moe-16b at full width) on the
+    mesh with EP over ``ep_axes``. Depth 4 in float32: the prefill of
+    ``check`` and the decode steps fed ``feed``, the router's choices
+    logged; then full depth in bf16: each of ``prompts`` (B=1) prefilled
+    and decoded greedily for ``steps`` steps, with the pairs dropped, the
+    ``all_to_all`` bytes, the branches taken and the attention kernels'
+    launches counted; then the first ``witness`` prompts again with the EP
+    sums in rank order (``OrderedEPSum``), their logits kept."""
+    import dataclasses
+    _p6_setup()
+    ctx = _p6_ctx(model_par, ep_axes)
+    out = {"rank": rank}
+    model = _seeded(dataclasses.replace(full, n_layers=4), torch.float32,
+                    dev, ctx)
+    with RoutingLog() as routes:
+        logits, _ = _decode(model, check, feed.shape[1], feed=feed)
+    out["check"] = [x.numpy() for x in logits]
+    out["routes"] = ([(i.numpy(), m, mm.numpy()) for (i, m), mm in
+                      zip(routes.calls, routes.margins)]
+                     if rank == 0 else None)
+    del model
+    torch.cuda.empty_cache()
+    ctx.stats.zero()
+    wrappers = _serve_launches()
+    for fn in wrappers.values():
+        fn.launches = 0
+    _reset(dev)
+    model = _seeded(full, torch.bfloat16, dev, ctx)
+    out["weights_gb"] = sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9
+    t0, picks = time.perf_counter(), []
+    for p in prompts:
+        picks.append(_decode(model, np.asarray(p)[None], steps)[1].numpy())
+    _sync(dev)
+    st = ctx.stats
+    out.update(serve_s=time.perf_counter() - t0, picks=picks,
+               peak=_peak(dev), dropped=int(st.dropped), pairs=st.pairs,
+               a2a_calls=st.a2a_calls, a2a_bytes=st.a2a_bytes,
+               branches=dict(st.branches),
+               launches={n: fn.launches for n, fn in wrappers.items()})
+    with OrderedEPSum():
+        out["witness"] = [_decode(model, np.asarray(p)[None], steps)
+                          for p in prompts[:witness]]
+    out["witness"] = [([x.numpy() for x in lg], pk.numpy())
+                      for lg, pk in out["witness"]]
+    return out
+
+
+def _mesh_spawn(fn, world, args, tmp, name):
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    res = spawn(fn, world, args, init_method=f"file://{tmp}/{name}",
+                device=P6_DEVICE, backend="gloo", timeout=900)
+    return res, time.perf_counter() - t0
+
+
+def _rel(got, want):
+    return (max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+            / max(float(np.abs(b).max()) for b in want))
+
+
+def phase_mesh_kernels():
+    """6k: the attention kernels at the per-rank shapes of phase 6: a rank
+    of full-width smollm-360m at model_par 2 holds 8 of the 16 padded
+    query heads over all 5 KV heads (rank 0's map 0,0,0,1,1,1,2,2; rank
+    1's 2,3,3,3,4,4,4,4), at 6a's training shape B=4 x 1024 (forward with
+    the lse, backward) and at decode; a rank of deepseek-moe-16b holds 8
+    of the 16 MHA heads with their KV heads (D=128). Each held to its plain
+    version, with its time, bound and SDPA's, as phase 2's rows."""
+    log("[6k] the attention kernels at a rank's heads (phase 6's shapes)")
+    r0, r1 = [0, 0, 0, 1, 1, 1, 2, 2], [2, 3, 3, 3, 4, 4, 4, 4]
+    bf = torch.bfloat16
+    rows = {
+        "1r0": flash_case("6a rank 0: smollm 8 over 5, B=4", bf, 1024, 1024,
+                          64, B=4, H=8, kv_heads=5, kv_map=r0),
+        "1r1": flash_case("6a rank 1: smollm 8 over 5, B=4", bf, 1024, 1024,
+                          64, B=4, H=8, kv_heads=5, kv_map=r1),
+        "1rm": flash_case("6b rank: deepseek-moe 8 over 8, D=128", bf, 256,
+                          256, 128, H=8),
+        "2r1": decode_case(bf, B=8, H=8, D=64, S=1024, kv_heads=5,
+                           kv_map=r1, label="6a rank 1"),
+        "2rm": decode_case(bf, B=8, H=8, D=128, S=1024, label="6b rank"),
+    }
+    rows["5r1"] = bwd_case("6a rank 1: smollm 8 over 5", 4, 1024, 1024, 64,
+                           H=8, kv_map=r1, kv_heads=5)[0]
+    return rows
+
+
+def phase_mesh_nccl(card):
+    """6.0: NCCL at world size 1, mesh (1, 1), in a process of its own:
+    full-width smollm-360m's bf16 prefill logits and greedy tokens bitwise
+    the no-mesh model's (every collective is over one rank, so none
+    runs)."""
+    import tempfile
+    cfg = _arch("smollm-360m")
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 256))
+    log(f"[6.0] mesh (1, 1) over NCCL, world size 1: full-width smollm-360m "
+        f"(bf16, seed 0), prefill of 2 x 256 tokens, {P6_STEPS} greedy "
+        "steps, against the model with no mesh")
+    model = _seeded(cfg, torch.bfloat16, "cuda")
+    want, want_picks = _decode(model, prompts, P6_STEPS)
+    del model
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        from repro_torch.launch.mesh import spawn
+        backend, shape, logits, picks = spawn(
+            p6_nccl_rank, 1, (cfg, prompts, P6_STEPS),
+            init_method=f"file://{tmp}/pg", device=P6_DEVICE,
+            backend="nccl")[0]
+    same = all(np.array_equal(a, b.numpy()) for a, b in zip(logits, want))
+    log(f"  backend {backend}, mesh {shape}: logits of the prefill and "
+        f"{P6_STEPS} steps bitwise equal: {same}; greedy tokens equal: "
+        f"{np.array_equal(picks, want_picks.numpy())}")
+    if not (same and np.array_equal(picks, want_picks.numpy())):
+        raise SystemExit("6.0: the (1, 1) mesh differs from no mesh")
+
+
+def phase_mesh_smollm(card):
+    """6a: full-width full-depth smollm-360m on gloo at (1, 2) (16 padded
+    query heads over 2 ranks, the 5 KV heads replicated, d_ff and the vocab
+    split) and (2, 2): float32 prefill logits within 1e-3 of the largest
+    logit of the single-rank card run and the greedy tokens equal; at
+    (2, 2) also the loss and every logical gradient at phase 4t's depth
+    and batch (1e-3 of each leaf's largest value), bf16 training at full
+    depth (B=8 x 1024, 3 steps, the loss falling, a checkpoint at step 2)
+    and that checkpoint resumed at (1, 1) here, its step's loss the
+    sharded run's to 1e-3."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.launch import train as launch
+    cfg = _arch("smollm-360m")
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab, (2, 256))
+    log(f"[6a] mesh: full-width full-depth smollm-360m over gloo on one "
+        f"card ({card}); every rank on {P6_DEVICE}, collectives through "
+        "host memory")
+    model = _seeded(cfg, torch.float32, "cuda")
+    t0 = time.perf_counter()
+    want, want_picks = _decode(model, prompts, P6_STEPS)
+    log(f"  single rank, float32: prefill 2 x 256 + {P6_STEPS} steps "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
+    del model
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = _seeded(cfg2, torch.float32, "cuda")
+    model.requires_grad_(True)
+    loss = model.loss(launch.synthetic_batch(cfg2, 2, 256, seed=0, step=0))
+    loss.backward()
+    want_loss = float(loss.detach())
+    want_grads = {n: p.grad.float().cpu() for n, p in
+                  model.named_parameters()}
+    del model, loss
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        for model_par, world in ((2, 2), (2, 4)):
+            mesh = (world // model_par, model_par)
+            last = world == 4
+            res, wall = _mesh_spawn(p6_smollm_rank, world, (
+                cfg, model_par, prompts, P6_STEPS,
+                (2, 256) if last else None, f"{tmp}/ckpt" if last else "",
+                (TRAIN_B, TRAIN_T)), tmp, f"pg{world}")
+            r0 = res[0]
+            rel = _rel(r0["logits"], [x.numpy() for x in want])
+            same = np.array_equal(r0["picks"], want_picks.numpy())
+            log(f"  {mesh}: {world} ranks in {wall:.1f} s; float32 prefill "
+                f"+ {P6_STEPS} steps {r0['serve_s']:.3f} s on rank 0 "
+                f"({card}, gloo on one card); logits relative difference "
+                f"{rel:.3e} (tol 1e-3), greedy tokens equal: {same}; "
+                f"launches a rank {[r['launches'] for r in res]}; peak "
+                f"memory a rank {['%.2f GB' % r['peak_serve'] for r in res]}")
+            if not (rel <= 1e-3 and same):
+                raise SystemExit(f"6a: {mesh} disagrees with one rank")
+            for r in res:
+                assert all(v > 0 for v in r["launches"].values()), r
+            if not last:
+                continue
+            worst, worst_name = 0.0, None
+            for n, w in want_grads.items():
+                top = float(w.abs().max())
+                d = float(np.abs(r0["grads"][n] - w.numpy()).max()) / top
+                if d > worst:
+                    worst, worst_name = d, n
+            rel_loss = abs(r0["loss"] - want_loss) / abs(want_loss)
+            log(f"  {mesh} depth 2, float32, B=2 x 256: loss {r0['loss']:.6f}"
+                f" vs {want_loss:.6f} (relative {rel_loss:.2e}, tol 1e-5); "
+                f"{len(want_grads)} logical gradients, the largest "
+                f"difference over the leaf's largest value {worst:.3e} "
+                f"({worst_name}; tol 1e-3)")
+            if not (rel_loss <= 1e-5 and worst <= 1e-3):
+                raise SystemExit("6a: sharded gradients disagree")
+            losses = r0["losses"]
+            log(f"  {mesh} bf16 training, full depth, B={TRAIN_B} x "
+                f"{TRAIN_T}: losses {['%.4f' % x for x in losses]}, step 0's"
+                f" batch again after them {r0['again']:.4f}; 3 steps in "
+                f"{r0['train_s']:.2f} s (first included), a warm step "
+                f"{r0['warm_ms']:.1f} ms ({card}, gloo through host memory,"
+                f" 4 ranks sharing the card); train launches rank 0 "
+                f"{r0['train_launches']}; peak memory a rank "
+                f"{['%.2f GB' % r['peak_train'] for r in res]}")
+            assert all(np.isfinite(losses)) and r0["again"] < losses[0], \
+                (losses, r0["again"])
+            assert all(v > 0 for v in r0["train_launches"].values())
+            _, resumed, _ = launch.train_loop(
+                cfg, steps=3, batch=TRAIN_B, seq=TRAIN_T, **P6_TRAIN,
+                ckpt_dir=f"{tmp}/ckpt", resume=True, log_every=0,
+                device="cuda")
+            rel3 = abs(resumed[0] - losses[2]) / abs(losses[2])
+            log(f"  the step-2 checkpoint of {mesh} resumed at (1, 1): "
+                f"step 3's loss {resumed[0]:.5f} vs the sharded run's "
+                f"{losses[2]:.5f} (relative {rel3:.2e}, tol 1e-3)")
+            if not rel3 <= 1e-3:
+                raise SystemExit("6a: the resumed (1, 1) run disagrees")
+            gc_cuda()
+
+
+def phase_mesh_moe(card):
+    """6b: full-width deepseek-moe-16b with classic EP at (1, 2) and 2D EP
+    at (2, 2): at depth 4 in float32 the logits of a 256-token prefill (the
+    dispatch branch) and 4 decode steps (the replicated one) held to the
+    one-process emulation of the mesh's EP (``EPEmulation``) within 1e-3
+    of the largest logit, the router's choices compared; then full depth
+    in bf16, the first 8 of 3a's prompts each prefilled and decoded
+    greedily for P6_STEPS steps (an odd prompt length takes the replicated
+    branch), with the pairs dropped and the ``all_to_all`` bytes. At
+    (2, 2) both data rows serve each prompt: the greedy tokens that differ
+    between their copies are counted, and the first 4 prompts run again
+    with the EP sums in rank order, where the two copies' logits must be
+    bitwise equal."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.launch.serve import make_requests
+    full = _arch("deepseek-moe-16b")
+    cfg4 = dataclasses.replace(full, n_layers=4)
+    # the first 8 of 3a's 16 prompts (one of odd length): every prompt's
+    # decode step is ~100 collectives through host memory
+    prompts = [r.tokens for r in make_requests(full, 16, 200.0, seed=0,
+                                               mean_prompt=256,
+                                               max_new=8)][:8]
+    toks = np.random.default_rng(1).integers(0, full.vocab, (1, 260))
+    check, feed = toks[:, :256], toks[:, 256:]
+    log(f"[6b] mesh: deepseek-moe-16b at full width over gloo on one card "
+        f"({card}); prompt lengths {[len(p) for p in prompts]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for model_par, world, axes in ((2, 2, ("model",)),
+                                       (2, 4, ("data", "model"))):
+            mesh = (world // model_par, model_par)
+            ep = world if "data" in axes else model_par
+            emu = _seeded(cfg4, torch.float32, "cuda")
+            with EPEmulation(mesh, axes), RoutingLog() as routes:
+                want, _ = _decode(emu, check, feed.shape[1], feed=feed)
+            del emu
+            gc_cuda()
+            res, wall = _mesh_spawn(p6_moe_rank, world, (
+                full, model_par, axes, check, feed, prompts, P6_STEPS,
+                P6_WITNESS if mesh[0] > 1 else 0), tmp, f"pg{world}")
+            r0 = res[0]
+            rel = _rel(r0["check"], [x.numpy() for x in want])
+            calls, flips, margins, smallest = _route_flips(
+                r0["routes"], routes.calls, ep)
+            log(f"  {mesh}, EP over {axes} ({full.n_experts // ep} experts "
+                f"a rank), {world} ranks in {wall:.1f} s: depth 4 float32 "
+                f"logits against the emulation, relative {rel:.3e} (tol "
+                f"1e-3); rank 0's {calls} router calls, smallest top-"
+                f"{full.top_k}/top-{full.top_k + 1} margin {smallest:.3e}, "
+                f"tokens routed otherwise than the emulation: {flips} "
+                f"(margins {['%.2e' % m for m in margins[:8]]})")
+            if not rel <= 1e-3:
+                raise SystemExit(f"6b: {mesh} disagrees with the emulation")
+            dropped = sum(r["dropped"] for r in res)
+            pairs = sum(r["pairs"] for r in res)
+            per_layer = (r0["a2a_bytes"] / max(1, r0["a2a_calls"] // 3))
+            log(f"  {mesh} full depth bf16: weights {r0['weights_gb']:.2f} "
+                f"GB a rank; {len(prompts)} prompts + {P6_STEPS} greedy "
+                f"steps each in {r0['serve_s']:.2f} s on rank 0 ({card}, gloo on one "
+                f"card); branches rank 0 {r0['branches']}; pairs dropped "
+                f"{dropped} of {pairs} dispatched; all_to_all sent by rank 0"
+                f" {r0['a2a_bytes'] / 1e6:.2f} MB in {r0['a2a_calls']} "
+                f"calls, {per_layer / 1e6:.3f} MB a dispatching MoE layer; "
+                f"launches a rank {[r['launches'] for r in res]}; peak "
+                f"memory a rank {['%.2f GB' % r['peak'] for r in res]}")
+            for r in res:
+                assert all(v > 0 for v in r["launches"].values()), r
+                # a data row's model ranks hold the same all-reduced bits
+                lead = res[r["rank"] // model_par * model_par]
+                assert all(np.array_equal(a, b) for a, b in
+                           zip(r["picks"], lead["picks"])), r["rank"]
+            if mesh[0] > 1:
+                # each data row serves the same prompt (B=1): the 4-rank
+                # all-reduce sums its copies in other chunks, other orders
+                other = res[model_par]
+                differ = sum(int((a != b).sum())
+                             for a, b in zip(r0["picks"], other["picks"]))
+                same = [all(np.array_equal(a, b) for a, b in zip(la, lb))
+                        and np.array_equal(pa, pb) for (la, pa), (lb, pb)
+                        in zip(r0["witness"], other["witness"])]
+                log(f"  {mesh}: greedy tokens that differ between the two "
+                    f"data rows' copies of each prompt: {differ} of "
+                    f"{sum(a.size for a in other['picks'])} (bf16); with "
+                    f"the EP sums in rank order, the copies' logits of the "
+                    f"first {P6_WITNESS} prompts ({P6_STEPS + 1} calls "
+                    f"each) bitwise equal: {same}")
+                if not all(same):
+                    raise SystemExit(f"6b: {mesh}'s data rows disagree with "
+                                     "the EP sums in rank order")
+            assert set(r0["branches"]) == {"dispatch", "replicated"}, \
+                r0["branches"]
+            gc_cuda()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2164,7 +2841,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
         f"capability {torch.cuda.get_device_capability(0)}")
@@ -2186,6 +2864,15 @@ def main() -> int:
         log(f"  phase {label} took {time.perf_counter() - t:.1f} s")
         return out
 
+    if sys.argv[1:] == ["--mesh-only"]:
+        # phase 6 alone (after the build), to rehearse it on the card; the
+        # smoke's result lines come only from a run of every phase
+        run_phase("6k", phase_mesh_kernels)
+        for label, fn in (("6.0", phase_mesh_nccl), ("6a", phase_mesh_smollm),
+                          ("6b", phase_mesh_moe)):
+            run_phase(label, fn, card)
+        log(f"  mesh phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     main_cases = run_phase("2", phase_kernels)
     launches = {**run_phase("3a", phase_serve_smollm),
                 **run_phase("3b", phase_serve_mamba2)}
@@ -2270,6 +2957,12 @@ def main() -> int:
         "5m", phase_train_mamba2)["ssd_chunked_bwd"]
     launches["rglru_scan_bwd"] = run_phase(
         "5r", phase_train_hybrid)["rglru_scan_bwd"]
+    # the mesh: the kernels at a rank's heads, then ranks spawned on the
+    # one card, after the card is freed
+    run_phase("6k", phase_mesh_kernels)
+    run_phase("6.0", phase_mesh_nccl, card)
+    run_phase("6a", phase_mesh_smollm, card)
+    run_phase("6b", phase_mesh_moe, card)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

@@ -26,9 +26,18 @@ decode stores the new token through ``_kv_store`` and the decode kernel
 reads the codes; a suffix prefill refuses such a cache (see ``_kv_load``).
 ``ssd_apply`` and ``rglru_apply`` have
 the same three modes over a per-sequence ``{"conv", "state"}`` cache (see
-``ssd_apply``'s docstring). ``moe_apply`` is the JAX package's
-single-device MoE: tokens sorted by expert through grouped products for a
-prefill, each token through its experts' gathered weights for decode.
+``ssd_apply``'s docstring). ``moe_apply`` has the JAX package's three
+MoE branches: on one device tokens sorted by expert through grouped
+products for a prefill, each token through its experts' gathered weights
+for decode; under expert parallelism the dispatch and combine over
+``all_to_all`` (``_moe_dispatch``) or the replicated tokens' partial sums
+(``_moe_replicated``).
+
+Under tensor parallelism (``models.sharding``, a rank's shard of each
+parameter) attention runs the rank's block of the query heads with
+``wo`` row-parallel and the SwiGLU its block of ``d_ff``; MLA and
+cross-attention are built only where the model axis has one rank
+(``lm._refuse_tp``).
 """
 from __future__ import annotations
 
@@ -44,7 +53,9 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..kernels.decode_attention import kv_dequant
 from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
-from .sharding import HEAD_PAD, pad_to_multiple
+from .sharding import (HEAD_PAD, ShardCtx, all_to_all, copy_to, exchange,
+                       gather_from, gather_partial, pad_to_multiple,
+                       reduce_from, scatter_to)
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "cross_apply",
            "MLA", "mla_init", "mla_apply", "ffn_init", "ffn_apply", "MoE",
@@ -80,18 +91,21 @@ def _kv_load(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class AttnDims:
-    """Padded head layout: query heads pad to a multiple of ``HEAD_PAD``
-    (the padded heads are exact no-ops through zeroed ``wo`` rows). KV heads
-    keep their true count unless the model is MHA, where they pad alongside
-    the query heads."""
+    """Padded head layout (logical, over every rank): query heads pad to a
+    multiple of ``HEAD_PAD`` (``ShardCtx.head_multiple``; the padded heads
+    are exact no-ops through zeroed ``wo`` rows). KV heads keep their true
+    count unless the model is MHA, where they pad alongside the query heads
+    and are split over the model axis with them; a GQA/MQA model's stay
+    whole on every rank."""
 
     n_q: int           # padded query heads
     n_kv: int          # stored kv heads (== n_q when MHA)
     hd: int
 
     @staticmethod
-    def of(cfg: ArchConfig) -> "AttnDims":
-        n_q = pad_to_multiple(cfg.n_heads, HEAD_PAD)
+    def of(cfg: ArchConfig, ctx: Optional[ShardCtx] = None) -> "AttnDims":
+        n_q = pad_to_multiple(cfg.n_heads, HEAD_PAD if ctx is None
+                              else ctx.head_multiple)
         if cfg.n_kv == cfg.n_heads:
             return AttnDims(n_q, n_q, cfg.hd)
         return AttnDims(n_q, cfg.n_kv, cfg.hd)
@@ -118,6 +132,8 @@ class Attention(nn.Module):
                         device=device)
         self.wo = Dense(dims.n_q * dims.hd, d, dtype=dtype, device=device)
         self.real_rows = cfg.n_heads * dims.hd
+        self.n_heads = cfg.n_heads
+        self.tp: Optional[ShardCtx] = None     # set by localize under TP
         # the q->kv map the attention kernels read, int32 on the model's
         # device: made once, never converted or copied per call; the same
         # map as Python ints, from which the backward kernel's inverse map
@@ -132,7 +148,37 @@ class Attention(nn.Module):
         for m in (self.wq, self.wk, self.wv, self.wo):
             m.init(generator)
         # zero the padded query heads' output rows => exact no-op heads
-        self.wo.w[self.real_rows:] = 0.0
+        # (the rows of a rank's shard from its offset in the whole)
+        split = getattr(self.wo.w, "shard", None)
+        lo = 0 if split is None else split.index * self.wo.w.shape[0]
+        self.wo.w[max(0, self.real_rows - lo):] = 0.0
+
+    def localize(self, ctx: ShardCtx) -> None:
+        """After the parameters took their shards (``Model``): the rank's
+        query heads are a block of the padded heads, and its q->kv map the
+        same block of the map, into its own block of KV heads where those
+        are split (MHA) or into every KV head where they are whole."""
+        split = getattr(self.wq.w, "shard", None)
+        host = self.kv_map_host
+        if split is None and ctx.model_size > 1:
+            raise ValueError(f"{ctx.model_size} ranks on the model axis do "
+                             f"not divide the {self.wq.w.shape[1]} query "
+                             "columns")
+        if split is not None:
+            hd = self.real_rows // self.n_heads
+            nq = self.wq.w.shape[1] // hd
+            if nq * hd != self.wq.w.shape[1]:
+                raise ValueError(f"a rank's {self.wq.w.shape[1]} query "
+                                 f"columns are not whole heads of {hd}")
+            host = host[split.index * nq:(split.index + 1) * nq]
+            kv_split = getattr(self.wk.w, "shard", None)
+            if kv_split is not None:
+                nkv = self.wk.w.shape[1] // hd
+                host = tuple(h - kv_split.index * nkv for h in host)
+            self.tp = ctx
+        self.kv_map_host = tuple(host)
+        self.kv_map = torch.tensor(host, dtype=torch.int32,
+                                   device=self.wq.w.device)
 
 
 def attn_init(cfg: ArchConfig, *, dtype=torch.bfloat16,
@@ -167,17 +213,25 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     The kernels take the stored KV heads and the query-head -> KV-head map
     (``p.kv_map``), which they clamp to the stored heads: the JAX model's
     ``jnp.minimum(q_to_kv, n_store - 1)``, for a decode cache of a padded
-    MHA model that keeps only the real heads."""
+    MHA model that keeps only the real heads.
+
+    Under tensor parallelism (``p.tp``, ``Attention.localize``) the rank
+    runs its block of the query heads over its KV heads (its block of an
+    MHA model's, all of a GQA model's) and its cache holds those; ``wo`` is
+    row-parallel, its partial products summed over the model axis."""
     B, T, _ = x.shape
-    dims = AttnDims.of(cfg)
-    q = p.wq(x).reshape(B, T, dims.n_q, dims.hd)
-    k = p.wk(x).reshape(B, T, dims.n_kv, dims.hd)
-    v = p.wv(x).reshape(B, T, dims.n_kv, dims.hd)
+    hd = AttnDims.of(cfg).hd
+    n_q, n_kv = p.wq.w.shape[1] // hd, p.wk.w.shape[1] // hd   # the rank's
+    if p.tp is not None:
+        x = copy_to(x, p.tp, p.tp.model_axis)
+    q = p.wq(x).reshape(B, T, n_q, hd)
+    k = p.wk(x).reshape(B, T, n_kv, hd)
+    v = p.wv(x).reshape(B, T, n_kv, hd)
     if mode == "decode":
         positions = pos.reshape(B, 1)                          # [B, 1]
     else:
         positions = pos + torch.arange(T, device=x.device)[None, :]
-    sin, cos = rope(positions, dims.hd, cfg.rope_theta)
+    sin, cos = rope(positions, hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 
@@ -220,7 +274,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         out = _attend(p, q, k, v, causal=True, window=window)
         keep = min(window, T) if window else T
         new_cache = {"k": k[:, T - keep:], "v": v[:, T - keep:]}
-    y = p.wo(out.reshape(B, T, dims.n_q * dims.hd))
+    y = p.wo(out.reshape(B, T, n_q * hd))
+    if p.tp is not None:
+        y = reduce_from(y, p.tp, p.tp.model_axis)
     return y, new_cache
 
 
@@ -369,8 +425,11 @@ def ffn_init(cfg: ArchConfig, d_ff: Optional[int] = None, *,
     return SwiGLU(cfg.d_model, d_ff or cfg.d_ff, dtype=dtype, device=device)
 
 
-def ffn_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    return p(x)
+def ffn_apply(p: SwiGLU, x: torch.Tensor,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """The SwiGLU; column- then row-parallel over the model axis of ``ctx``
+    where its width is split (``SwiGLU.forward``)."""
+    return p(x, ctx)
 
 
 # ------------------------------------------------------------------ MoE FFN
@@ -478,15 +537,165 @@ def _moe_token_gather(p: MoE, x: torch.Tensor, cfg: ArchConfig
     return y.reshape(B, T, D).to(x.dtype)
 
 
-def moe_apply(p: MoE, x: torch.Tensor, *, cfg: ArchConfig, mode: str
-              ) -> torch.Tensor:
-    """x: [B, T, D]. The token gather for decode, the sorted grouped
-    products otherwise (train included: JAX's ``_moe_local`` on one
-    device), plus the shared experts."""
-    local = _moe_token_gather if mode == "decode" else _moe_local
-    y = local(p, x, cfg)
+# ------------------------------------------------- MoE: expert parallelism
+#: the slots a destination shard gives a rank's (token, expert) pairs, as a
+#: multiple of an even share (the JAX package's ``capacity_factor``)
+CAPACITY_FACTOR = 1.25
+
+
+def _ep_send(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
+             E_loc: int, ep: int):
+    """A shard's half of the dispatch (the JAX ``_moe_ep_body`` up to its
+    first ``all_to_all``): its N tokens routed, each (token, k) pair
+    numbered within its destination shard in the flattened (token, k)
+    order, and the first ``cap = ceil(N K / ep * CAPACITY_FACTOR)`` of
+    each destination laid into ``send_x`` [ep, cap, D] with their local
+    expert ids ``send_e`` [ep, cap] (``E_loc`` marks an empty slot); the
+    pairs past ``cap`` drop. Returns (send_x, send_e, route), ``route`` =
+    (gates, destination, slot) of each pair for the combine, a dropped
+    pair's slot being ``cap``."""
+    N, D = xf.shape
+    K = cfg.top_k
+    gates, idx = _route(xf, router, K)
+    dest = (idx // E_loc).reshape(-1)                         # [N*K]
+    cap = max(1, int(math.ceil(N * K / ep * CAPACITY_FACTOR)))
+    pos = (F.one_hot(dest, ep).cumsum(0) - 1).gather(1, dest[:, None])[:, 0]
+    slot = torch.where(pos < cap, pos, cap)     # column cap: the dropped
+    src = torch.arange(N * K, device=xf.device) // K
+    send_x = xf.new_zeros(ep, cap + 1, D).index_put((dest, slot), xf[src])
+    send_e = torch.full((ep, cap + 1), E_loc, dtype=idx.dtype,
+                        device=xf.device).index_put(
+                            (dest, slot), (idx % E_loc).reshape(-1))
+    return send_x[:, :cap], send_e[:, :cap], (gates, dest, slot)
+
+
+def _ep_experts(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
+                recv_x: torch.Tensor, recv_e: torch.Tensor) -> torch.Tensor:
+    """The shard's experts over the rows it received ([ep, cap, D] and their
+    local ids): the grouped SwiGLU (``_expert_ffn``) over the filled slots,
+    zeros in the empty ones. One host read: the count of filled slots."""
+    E_loc, D = w_in.shape[0], recv_x.shape[-1]
+    rx, re = recv_x.reshape(-1, D), recv_e.reshape(-1)
+    live = torch.argsort(re, stable=True)[:int((re < E_loc).sum())]
+    y = rx.new_zeros(rx.shape).index_put(
+        (live,), _expert_ffn(w_in, w_gate, w_out, rx[live], re[live]))
+    return y.reshape(recv_x.shape)
+
+
+def _ep_combine(back: torch.Tensor, route) -> torch.Tensor:
+    """A shard's half of the combine: each kept pair's expert output back
+    from its destination ``back`` [ep, cap, D], weighted by its gate, and
+    each token's K pairs summed in k order (a dropped pair adds nothing):
+    no atomics, so a token's row does not depend on where it lies."""
+    gates, dest, slot = route
+    picked = F.pad(back, (0, 0, 0, 1))[dest, slot]           # [N*K, D]
+    picked = picked * gates.reshape(-1)[:, None].to(picked.dtype)
+    return picked.reshape(*gates.shape, -1).sum(1)
+
+
+def _ep_partial(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
+                router: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig,
+                lo: int, mode: str) -> torch.Tensor:
+    """The JAX ``body_dec`` before its ``psum``: every token's output from
+    the shard's experts ``[lo, lo + E_loc)`` only, its other pairs masked
+    out. Decode gathers each token's experts' weights (the masked token
+    gather, no host read); a longer input sorts the shard's pairs through
+    the grouped SwiGLU (one host read: the count of local pairs) and sums
+    each token's pairs in k order."""
+    N, D = xf.shape
+    K, E_loc = cfg.top_k, w_in.shape[0]
+    gates, idx = _route(xf, router, K)
+    local = (idx >= lo) & (idx < lo + E_loc)
+    if mode == "decode":
+        e = (idx - lo).clamp(0, E_loc - 1)
+        xk = xf[:, None, None, :]
+        h = F.silu(xk @ w_gate[e]) * (xk @ w_in[e])             # [N, K, 1, F]
+        h = h * (gates * local)[..., None, None].to(h.dtype)
+        y = h.reshape(N, 1, -1) @ w_out[e].reshape(N, -1, D)
+        return y.reshape(N, D).to(xf.dtype)
+    e = torch.where(local, idx - lo, E_loc).reshape(-1)
+    rows = torch.argsort(e, stable=True)[:int(local.sum())]
+    y = _expert_ffn(w_in, w_gate, w_out, xf[rows // K], e[rows])
+    y = y * gates.reshape(-1)[rows][:, None].to(y.dtype)
+    return xf.new_zeros(N * K, D).index_put((rows,), y).reshape(
+        N, K, D).sum(1)
+
+
+def _a2a_bytes(t: torch.Tensor, ep: int) -> int:
+    """What one rank sends to the others in an ``all_to_all`` of ``t``."""
+    return t.numel() * t.element_size() * (ep - 1) // ep
+
+
+def _moe_dispatch(p: MoE, xl: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
+                  ) -> torch.Tensor:
+    """The dispatch branch on a rank: its tokens ``xl`` to the experts'
+    shards over ``ctx.ep_axes`` (``all_to_all`` of the rows and of their
+    local expert ids), the shard's experts, the outputs back (a second
+    ``all_to_all``) and the gate-weighted combine: the paper's Stage-2
+    traffic."""
+    xf = xl.reshape(-1, xl.shape[-1])
+    ep, axes = ctx.ep_size, ctx.ep_axes
+    send_x, send_e, route = _ep_send(xf, p.router, cfg, p.w_in.shape[0], ep)
+    recv_x = exchange(send_x, ctx, axes)
+    recv_e = all_to_all(send_e, ctx, axes)
+    back = exchange(_ep_experts(p.w_in, p.w_gate, p.w_out, recv_x, recv_e),
+                    ctx, axes)
+    st = ctx.stats
+    st.dropped = st.dropped + (route[2] == send_x.shape[1]).sum()
+    st.pairs += route[1].numel()
+    st.a2a_calls += 3
+    st.a2a_bytes += 2 * _a2a_bytes(send_x, ep) + _a2a_bytes(send_e, ep)
+    return _ep_combine(back, route).reshape(xl.shape)
+
+
+def _moe_replicated(p: MoE, x: torch.Tensor, cfg: ArchConfig,
+                    ctx: ShardCtx, mode: str) -> torch.Tensor:
+    """The JAX decode branch (``body_dec``): the tokens replicated inside the
+    EP domain (gathered over its data axes), each rank's experts' share of
+    every token, summed over ``ep_axes`` (``all_reduce``), the rank's rows
+    kept."""
+    gather = tuple(a for a in ctx.batch_axes if a in ctx.ep_axes)
+    rest = tuple(a for a in ctx.ep_axes if a not in gather)
+    xg = gather_partial(copy_to(x, ctx, rest), ctx, gather, 0)
+    B, T, D = xg.shape
+    lo = ctx.index(ctx.ep_axes) * p.w_in.shape[0]
+    part = _ep_partial(p.w_in, p.w_gate, p.w_out, p.router,
+                       xg.reshape(-1, D), cfg, lo, mode)
+    y = reduce_from(part.reshape(B, T, D), ctx, ctx.ep_axes)
+    return scatter_to(y, ctx, gather, 0)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """x: [B, T, D] (the rank's rows). Plus the shared experts (column- and
+    row-parallel as a SwiGLU under TP). The JAX ``moe_apply``'s three
+    branches, picked by its rule:
+
+    * local, with no mesh, one EP rank or experts the EP ranks do not
+      divide: the token gather for decode, the sorted grouped products
+      otherwise (train included);
+    * dispatch, when the model axis divides T: the sequence split over
+      "model", each rank's tokens dispatched to the experts' shards and
+      combined (``_moe_dispatch``), the blocks gathered back over "model";
+    * replicated otherwise (decode, an odd prompt): ``_moe_replicated``.
+
+    ``ctx.stats`` counts the branches, pairs dropped and ``all_to_all``
+    bytes."""
+    B, T, D = x.shape
+    ep = 1 if ctx is None else ctx.ep_size
+    if ep == 1 or cfg.n_experts % ep:
+        branch = "local"
+        y = (_moe_token_gather if mode == "decode" else _moe_local)(p, x, cfg)
+    elif T % ctx.model_size == 0:
+        branch, mdl = "dispatch", ctx.model_axis
+        y = gather_from(_moe_dispatch(p, scatter_to(x, ctx, mdl, 1), cfg,
+                                      ctx), ctx, mdl, 1)
+    else:
+        branch, y = "replicated", _moe_replicated(p, x, cfg, ctx, mode)
+    if ctx is not None:
+        ctx.stats.branches[branch] = ctx.stats.branches.get(branch, 0) + 1
     if p.shared is not None:
-        y = y + p.shared(x)
+        y = y + p.shared(x, ctx)
     return y
 
 

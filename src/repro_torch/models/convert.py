@@ -39,8 +39,9 @@ def _walk(tree: Any, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
 
 def from_jax_params(params: Any, model: Model) -> Model:
     """Copy ``params`` (the JAX pytree with numpy leaves) into ``model``,
-    cast to each parameter's dtype and device. Strict: every parameter of
-    the model must be set and every leaf used."""
+    cast to each parameter's dtype and device; a sharded model takes its
+    rank's block of each leaf (``Split``). Strict: every parameter of the
+    model must be set and every leaf used."""
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _walk(params):
         arr = torch.from_numpy(np.array(leaf, dtype=np.float32))
@@ -62,6 +63,8 @@ def from_jax_params(params: Any, model: Model) -> Model:
     if missing or extra:
         raise KeyError(f"parameter trees differ: missing {sorted(missing)}, "
                        f"unexpected {sorted(extra)}")
+    from ..launch.shardings import model_splits, shard_state
+    state = shard_state(state, model_splits(model))
     model.load_state_dict({k: v.to(own[k].dtype) for k, v in state.items()})
     return model
 

@@ -14,8 +14,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "RMSNorm", "SwiGLU", "normal_", "rmsnorm", "rope",
-           "apply_rope", "gqa_attention", "softmax_xent"]
+from .sharding import copy_to, reduce_from
+
+__all__ = ["Dense", "RMSNorm", "SwiGLU", "normal_", "logical_shape",
+           "rmsnorm", "rope", "apply_rope", "gqa_attention", "softmax_xent",
+           "xent_terms"]
 
 
 #: float32 values drawn at once by ``normal_``: a larger tensor is drawn
@@ -24,17 +27,43 @@ __all__ = ["Dense", "RMSNorm", "SwiGLU", "normal_", "rmsnorm", "rope",
 NORMAL_BLOCK = 1 << 30
 
 
+def logical_shape(param: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of the whole tensor of which ``param`` is a rank's block
+    (its ``shard``, a ``models.sharding.Split``), or its own shape."""
+    split = getattr(param, "shard", None)
+    shape = list(param.shape)
+    if split is not None:
+        shape[split.dim] *= split.parts
+    return tuple(shape)
+
+
 @torch.no_grad()
 def normal_(param: torch.Tensor, generator: torch.Generator,
             scale: float) -> None:
     """Fill ``param`` with N(0, scale^2) drawn in float32 on the generator's
     device, in blocks of its leading axis of at most ``NORMAL_BLOCK``
-    values (one draw for any tensor that fits in one)."""
-    step = max(1, NORMAL_BLOCK // max(1, param[0].numel()))
-    for r in range(0, param.shape[0], step):
-        x = torch.randn(param[r:r + step].shape, generator=generator,
+    values (one draw for any tensor that fits in one). A rank's shard draws
+    the whole logical tensor's blocks and keeps its own part, so every mesh
+    gets the same weights from one seed."""
+    split = getattr(param, "shard", None)
+    shape = logical_shape(param)
+    step = max(1, NORMAL_BLOCK // max(1, math.prod(shape[1:])))
+    for r in range(0, shape[0], step):
+        rows = min(step, shape[0] - r)
+        x = torch.randn((rows,) + shape[1:], generator=generator,
                         device=generator.device, dtype=torch.float32)
-        param[r:r + step].copy_(x.mul_(scale))
+        x.mul_(scale)
+        if split is None:
+            param[r:r + step].copy_(x)
+        elif split.dim:
+            n = param.shape[split.dim]
+            param[r:r + step].copy_(x.narrow(split.dim, split.index * n, n))
+        else:
+            # rows [lo, hi) of the logical tensor are this rank's
+            lo = split.index * param.shape[0]
+            a, b = max(r, lo), min(r + rows, lo + param.shape[0])
+            if a < b:
+                param[a - lo:b - lo].copy_(x[a - r:b - r])
 
 
 class Dense(nn.Module):
@@ -47,7 +76,7 @@ class Dense(nn.Module):
                                requires_grad=False) if bias else None)
 
     def init(self, generator: torch.Generator) -> None:
-        normal_(self.w, generator, 1.0 / math.sqrt(self.w.shape[0]))
+        normal_(self.w, generator, 1.0 / math.sqrt(logical_shape(self.w)[0]))
         if self.b is not None:
             self.b.zero_()
 
@@ -113,8 +142,15 @@ class SwiGLU(nn.Module):
         for m in (self.wi, self.wg, self.wo):
             m.init(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(F.silu(self.wg(x)) * self.wi(x))
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
+        """With ``wi``/``wg`` split over the model axis of ``ctx``
+        (column-parallel) and ``wo`` with them (row-parallel), the rank's
+        partial output is summed over that axis."""
+        tp = getattr(self.wo.w, "shard", None)
+        if tp is not None:
+            x = copy_to(x, ctx, tp.axes)
+        y = self.wo(F.silu(self.wg(x)) * self.wi(x))
+        return y if tp is None else reduce_from(y, ctx, tp.axes)
 
 
 # ----------------------------------------------------------------- attention
@@ -148,10 +184,18 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     labels (at least 1). The gold logit is a gather here; JAX's one-hot
     select-reduce is the same value, written for a vocab sharded over
     devices."""
+    loss, valid = xent_terms(logits, labels, ignore_index)
+    return loss.sum() / valid.sum().clamp(min=1)
+
+
+def xent_terms(logits: torch.Tensor, labels: torch.Tensor,
+               ignore_index: int = -100
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each token's cross-entropy in float32 (0 where ignored) and the mask
+    of the labels counted."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     gold = logits.gather(-1, safe[..., None])[..., 0]
-    loss = torch.where(valid, lse - gold, torch.zeros_like(lse))
-    return loss.sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, lse - gold, torch.zeros_like(lse)), valid

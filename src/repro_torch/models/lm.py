@@ -24,6 +24,10 @@ Parameters are built with ``requires_grad=False`` and serving runs under
 ``no_grad``; training turns gradients on with ``Model.requires_grad_()``
 (``training.trainer.init_train_state`` does).
 
+``build_model(cfg, ctx=ShardCtx(mesh=...))`` builds a rank's shard of the
+model (see ``Model``): the batch a call takes is the rank's rows, its
+caches the rank's heads, its logits the whole vocab's.
+
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
 then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
 ``[count, B, S, n_kv, hd]`` for attention (``S <= window`` for a local
@@ -51,11 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .blocks import (AttnDims, attn_apply, attn_init, cross_apply, ffn_apply,
-                     ffn_init, mla_apply, mla_init, moe_apply, moe_init,
-                     rglru_apply, rglru_init, ssd_apply, ssd_init)
-from .layers import Dense, RMSNorm, normal_, softmax_xent
-from .sharding import HEAD_PAD, pad_to_multiple
+from .blocks import (Attention, AttnDims, attn_apply, attn_init, cross_apply,
+                     ffn_apply, ffn_init, mla_apply, mla_init, moe_apply,
+                     moe_init, rglru_apply, rglru_init, ssd_apply, ssd_init)
+from .layers import Dense, RMSNorm, normal_, softmax_xent, xent_terms
+from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_reduce, copy_to,
+                       pad_to_multiple, reduce_from)
 
 __all__ = ["Model", "build_model", "Segment", "plan_segments"]
 
@@ -123,9 +128,9 @@ class Layer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, kind: str, window: int = 0,
                  is_moe: bool = False, cross: bool = False, *, dtype,
-                 device):
+                 device, ctx: Optional[ShardCtx] = None):
         super().__init__()
-        self.kind, self.window = kind, window
+        self.kind, self.window, self.ctx = kind, window, ctx
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.mix = _MIXER_INIT[kind](cfg, dtype=dtype, device=device)
         self.ln2 = self.ffn = self.ffn_moe = self.ln_x = self.xattn = None
@@ -173,9 +178,10 @@ class Layer(nn.Module):
             x = x + h
         h = self.ln2(x, cfg.norm_eps)
         if self.ffn_moe is not None:
-            x = x + moe_apply(self.ffn_moe, h, cfg=cfg, mode=mode)
+            x = x + moe_apply(self.ffn_moe, h, cfg=cfg, mode=mode,
+                              ctx=self.ctx)
         else:
-            x = x + ffn_apply(self.ffn, h)
+            x = x + ffn_apply(self.ffn, h, self.ctx)
         return x, (new or None)
 
 
@@ -198,15 +204,31 @@ class Model(nn.Module):
     never reads the MTP head: it is the training loss's. ``remat``: the
     train mode recomputes each layer in the backward instead of keeping its
     activations (``torch.utils.checkpoint``; the values do not change), as
-    the JAX launcher's ``--remat``."""
+    the JAX launcher's ``--remat``.
+
+    Under a mesh (``ctx``) the model is a rank's shard: each parameter is
+    built at its shard's shape, its ``Split`` as its ``shard`` (``launch.
+    shardings.param_placement``; built whole on the ``meta`` device first,
+    so the blocks' code is the same on every mesh), the vocab split over "model"
+    where the embedding is (vocab-parallel lookup and cross-entropy;
+    ``prefill`` and ``decode_step`` gather the logits), the batch the rank's
+    rows, the loss the mean over the whole batch of every data rank. SSM,
+    hybrid, encoder-decoder and MLA models run data parallel only (one rank
+    on "model")."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
-                 device=None, remat: bool = False):
+                 device=None, remat: bool = False,
+                 ctx: Optional[ShardCtx] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
+        self.ctx = ctx = ShardCtx() if ctx is None else ctx
         self.segments = plan_segments(cfg)
+        sharded = ctx.mesh is not None
+        if sharded:
+            _refuse_tp(cfg, ctx)
+        final_device, device = device, ("meta" if sharded else device)
         self.embed = nn.Parameter(
             torch.zeros(self.vocab_padded, cfg.d_model, dtype=dtype,
                         device=device), requires_grad=False)
@@ -216,14 +238,14 @@ class Model(nn.Module):
         for si, seg in enumerate(self.segments):
             self.add_module(f"seg{si}", nn.ModuleList(
                 nn.ModuleList(Layer(cfg, kind, window, is_moe, seg.cross,
-                                    dtype=dtype, device=device)
+                                    dtype=dtype, device=device, ctx=ctx)
                               for kind, is_moe, window in seg.kinds)
                 for _ in range(seg.count)))
         self.encoder = self.enc_ln_f = self.mtp_proj = self.mtp_layer = None
         if cfg.enc_layers:
             self.encoder = nn.ModuleList(
                 Layer(cfg, _mixer_kind(cfg, 0), 0, cfg.is_moe_layer(0),
-                      dtype=dtype, device=device)
+                      dtype=dtype, device=device, ctx=ctx)
                 for _ in range(cfg.enc_layers))
             self.enc_ln_f = RMSNorm(cfg.d_model, device=device)
         if cfg.mtp:
@@ -232,7 +254,31 @@ class Model(nn.Module):
                                   device=device)
             self.mtp_layer = nn.ModuleList([Layer(
                 cfg, _mixer_kind(cfg, last), 0, cfg.is_moe_layer(last),
-                dtype=dtype, device=device)])
+                dtype=dtype, device=device, ctx=ctx)])
+        self.kv_heads = cfg.n_kv         # KV heads a decode cache stores
+        if sharded:
+            self._localize(final_device)
+
+    def _localize(self, device) -> None:
+        """Replace each (meta) parameter by the rank's shard on ``device``,
+        its ``Split`` as the parameter's ``shard``; each attention layer
+        takes its heads' block of the q->kv map."""
+        from ..launch.shardings import param_placement   # launch imports us
+        for name, p in list(self.named_parameters()):
+            split = param_placement(name, tuple(p.shape), self.cfg, self.ctx)
+            shape = list(p.shape)
+            if split is not None:
+                shape[split.dim] //= split.parts
+            new = nn.Parameter(torch.zeros(shape, dtype=p.dtype,
+                                           device=device), requires_grad=False)
+            new.shard = split
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(owner) if owner else self, leaf, new)
+        for m in self.modules():
+            if isinstance(m, Attention):
+                m.localize(self.ctx)
+                if getattr(m.wk.w, "shard", None) is not None:
+                    self.kv_heads = m.wk.w.shape[1] // self.cfg.hd
 
     @property
     def vocab_padded(self) -> int:
@@ -334,9 +380,18 @@ class Model(nn.Module):
     def _lookup(self, tokens) -> torch.Tensor:
         """Rows of ``embed``; ``F.embedding``, whose backward on the card
         sums each row's gradient in a fixed order (indexing's backward adds
-        with atomics, in an order that changes from run to run)."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        return F.embedding(tokens.long(), self.embed)
+        with atomics, in an order that changes from run to run). With the
+        vocab split, each rank looks up the tokens in its rows (zeros for
+        the others) and the rows are summed over "model"."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        split = getattr(self.embed, "shard", None)
+        if split is None:
+            return F.embedding(tokens, self.embed)
+        local = tokens - split.index * self.embed.shape[0]
+        mine = (local >= 0) & (local < self.embed.shape[0])
+        rows = F.embedding(torch.where(mine, local, 0), self.embed)
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return reduce_from(rows, self.ctx, split.axes)
 
     def _encode(self, src_embeds) -> torch.Tensor:
         """The encoder over the source embeddings [B, S, d]: bidirectional
@@ -346,14 +401,72 @@ class Model(nn.Module):
             x, _ = layer(x, cfg=self.cfg, mode="encode")
         return self.enc_ln_f(x, self.cfg.norm_eps)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _vocab_split(self):
+        w = self.embed if self.unembed is None else self.unembed.w
+        return getattr(w, "shard", None)
+
+    def _local_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits of the rank's block of the vocab (all of it when the
+        vocab is not split), the padded tail at -1e30."""
         x = self.ln_f(x, self.cfg.norm_eps)
+        split = self._vocab_split()
+        if split is not None:
+            x = copy_to(x, self.ctx, split.axes)
         logits = x @ self.embed.T if self.unembed is None else self.unembed(x)
         if self.vocab_padded != self.cfg.vocab:
-            iota = torch.arange(self.vocab_padded, device=logits.device)
+            lo = 0 if split is None else split.index * logits.shape[-1]
+            iota = lo + torch.arange(logits.shape[-1], device=logits.device)
             logits = torch.where(iota < self.cfg.vocab, logits,
                                  torch.full_like(logits, -1e30))
         return logits
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole vocab's logits (gathered over "model" when split)."""
+        split = self._vocab_split()
+        logits = self._local_logits(x)
+        return (logits if split is None else
+                all_gather(logits, self.ctx, split.axes, logits.dim() - 1))
+
+    def _xent(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The mean token cross-entropy of the final hidden states ``x``
+        against ``labels``. With no mesh, ``softmax_xent`` of the logits.
+        Under a mesh, the mean over the whole batch: the numerator and the
+        count of labels summed over the data axes, and with the vocab split
+        the log-sum-exp and the gold logit assembled over "model" from each
+        rank's block (the row max and the sums of exponentials all-reduced):
+        a rank holds its [B, T, V / m] block of float32 logits and never
+        the whole vocab's (at full-width smollm-360m's B=8 x 1024 that block
+        is 0.8 GB at m=2; gathered, the float32 logits would be 1.6 GB a
+        rank, and their gradient as much again)."""
+        ctx = self.ctx
+        if ctx.mesh is None:
+            return softmax_xent(self._local_logits(x), labels)
+        split = self._vocab_split()
+        if split is None:
+            per_tok, valid = xent_terms(self._local_logits(x), labels)
+        else:
+            per_tok, valid = self._vocab_parallel_terms(x, labels, split)
+        num = reduce_from(per_tok.sum(), ctx, ctx.batch_axes)
+        count = all_reduce(valid.sum(), ctx, ctx.batch_axes)
+        return num / count.clamp(min=1)
+
+    def _vocab_parallel_terms(self, x, labels, split):
+        """``xent_terms`` over a vocab split on "model": each rank's block
+        of the logits, the row max and the sum of exponentials all-reduced
+        into the log-sum-exp, the gold logit from the rank that holds it."""
+        ctx, axes = self.ctx, split.axes
+        logits = self._local_logits(x).float()
+        n = logits.shape[-1]
+        top = all_reduce(logits.detach().amax(-1), ctx, axes, op="max")
+        lse = top + torch.log(reduce_from(
+            torch.exp(logits - top[..., None]).sum(-1), ctx, axes))
+        valid = labels != -100
+        local = torch.where(valid, labels, 0).long() - split.index * n
+        mine = (local >= 0) & (local < n)
+        gold = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+        gold = reduce_from(torch.where(mine, gold, torch.zeros_like(gold)),
+                           ctx, axes)
+        return torch.where(valid, lse - gold, torch.zeros_like(lse)), valid
 
     # ----------------------------------------------------------------- train
     def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
@@ -371,13 +484,13 @@ class Model(nn.Module):
         x = self._embed(batch)
         x, _ = self._run_segments(x, "train", memory=memory)
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        loss = softmax_xent(self._logits(x), labels)
+        loss = self._xent(x, labels)
         if self.mtp_layer is not None and "labels2" in batch:
             emb2 = self._lookup(labels.clamp(min=0))
             h2 = self.mtp_proj(torch.cat([x, emb2.to(x.dtype)], -1))
             h2 = self._train_layer(self.mtp_layer[0], h2)
             labels2 = torch.as_tensor(batch["labels2"], device=self.device)
-            loss = loss + 0.3 * softmax_xent(self._logits(h2), labels2)
+            loss = loss + 0.3 * self._xent(h2, labels2)
         return loss
 
     # --------------------------------------------------------------- serving
@@ -474,8 +587,8 @@ class Model(nn.Module):
                     "kr": zeros((max_len, cfg.rope_head_dim), kv_dtype)}}
             else:
                 S = min(max_len, window) if window else max_len
-                entry = {"mix": {n: zeros((S, cfg.n_kv, dims.hd), kv_dtype)
-                                 for n in ("k", "v")}}
+                entry = {"mix": {n: zeros((S, self.kv_heads, dims.hd),
+                                          kv_dtype) for n in ("k", "v")}}
             if cfg.enc_layers and src_len:
                 for n in ("xk", "xv"):
                     entry[n] = zeros((src_len, dims.n_kv, dims.hd), kv_dtype)
@@ -484,14 +597,37 @@ class Model(nn.Module):
         return [one(kind, window) for kind, _, window in seg.kinds]
 
 
+def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
+    """Tensor parallelism covers the dense and MoE families; the others
+    raise rather than run replicated."""
+    m = ctx.model_size
+    if m == 1:
+        return
+    if m > ctx.head_pad:
+        raise NotImplementedError(
+            f"a model axis of {m} > {ctx.head_pad} ranks is not ported "
+            "(ROADMAP queue 1 #8)")
+    for what, bad in (("an SSM mixer", cfg.family == "ssm"),
+                      ("an RG-LRU block", bool(cfg.block_pattern)),
+                      ("an encoder-decoder", cfg.enc_layers > 0),
+                      ("MLA attention", cfg.use_mla)):
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism of {what} is the next "
+                f"slice (ROADMAP queue 1 #8); run it with model_par=1 "
+                "(data parallel)")
+
+
 def build_model(cfg: ArchConfig, *, device=None, dtype=torch.bfloat16,
                 generator: Optional[torch.Generator] = None,
-                remat: bool = False) -> Model:
+                remat: bool = False, ctx: Optional[ShardCtx] = None) -> Model:
     """Build on ``device`` (default: the card; raises without one). With a
     ``generator`` the weights are drawn from it; otherwise they are zero
-    until :meth:`Model.init` or a ``load_state_dict``."""
+    until :meth:`Model.init` or a ``load_state_dict``. Under a mesh
+    (``ctx``), the rank's shard of the model; the same generator seed
+    gives every mesh the same logical weights."""
     model = Model(cfg, dtype=dtype, device=resolve_device(device),
-                  remat=remat)
+                  remat=remat, ctx=ctx)
     if generator is not None:
         model.init(generator)
     return model

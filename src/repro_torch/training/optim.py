@@ -18,9 +18,11 @@ defaults to rank >= 2, and the trainer passes the rank of the JAX leaf
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..models.sharding import ShardCtx, all_reduce
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
            "global_norm"]
@@ -52,12 +54,23 @@ def adamw_init(params: Mapping[str, torch.Tensor],
     return AdamWState(step=0, m=zeros(), v=zeros())
 
 
-def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Mapping[str, torch.Tensor],
+                shards: Optional[Mapping[str, Any]] = None,
+                ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """sqrt of the sum of every element's square, in float32; a 0-dim tensor
-    on the tensors' device (no host synchronisation)."""
-    total = None
-    for t in tensors.values():
+    on the tensors' device (no host synchronisation). Under a mesh, with
+    each tensor's ``shards`` entry (its ``Split`` or None), the norm of the
+    logical tensors: the squares of the split ones summed over their axes,
+    each replicated one counted once."""
+    sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for n, t in tensors.items():
         s = t.float().square().sum()
+        split = None if shards is None else shards[n]
+        axes = () if split is None else split.axes
+        sums[axes] = s if axes not in sums else sums[axes] + s
+    total = sums.pop((), None)
+    for axes, s in sums.items():        # the same order on every rank
+        s = all_reduce(s, ctx, axes)
         total = s if total is None else total + s
     return total.sqrt()
 
@@ -70,12 +83,15 @@ def _schedule(cfg: AdamWConfig, step: int) -> float:
 def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
                  params: Mapping[str, torch.Tensor],
                  cfg: AdamWConfig = AdamWConfig(),
-                 decay: Optional[Mapping[str, bool]] = None
+                 decay: Optional[Mapping[str, bool]] = None,
+                 shards: Optional[Mapping[str, Any]] = None,
+                 ctx: Optional[ShardCtx] = None
                  ) -> Tuple[Mapping[str, torch.Tensor], AdamWState,
                             torch.Tensor]:
     """Returns (params, new_state, pre-clip grad norm); ``params`` and the
-    moments are updated in place."""
-    gnorm = global_norm(grads)
+    moments are updated in place. Under a mesh each rank updates its shards
+    with the logical gradient's norm (``global_norm`` with ``shards``)."""
+    gnorm = global_norm(grads, shards, ctx)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = _schedule(cfg, state.step)

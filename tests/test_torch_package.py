@@ -70,6 +70,26 @@ def test_training_modules_import_without_jax_or_repro(module):
     assert "'repro_torch.training.checkpoint'" in out.stdout
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.sharding",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.shardings"])
+def test_mesh_modules_import_without_jax_or_repro(module):
+    """The multi-device slice on its own, with ``jax`` and ``repro``
+    blocked: the sharding context and collectives, the meshes over
+    ``torch.distributed`` and the placements."""
+    assert module in _modules()
+    code = ("import sys, importlib; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"m = importlib.import_module({module!r})\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))"
+            " for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ, "PYTHONPATH": str(SRC)},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_no_module_imports_jax_or_repro():
     banned = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = list((SRC / "repro_torch").rglob("*.py")) + [SRC.parent /
