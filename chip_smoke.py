@@ -121,8 +121,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
      branches), with the pairs dropped, the ``all_to_all`` bytes and each
      rank's peak memory; at (2, 2) the two data rows' copies of the first
      4 prompts, served again with the EP sums in rank order
-     (``OrderedEPSum``), bitwise equal. Any rank's failure fails the
-     phase.
+     (``OrderedEPSum``), bitwise equal; 6k's rows of the sequence-sharded
+     decode: the decode kernel's partial mode on a rank's slots (2ss:
+     smollm's 16 over 5 cut into 2 slices of 512, the merged partials held
+     to row 2g's single call; 2q8s: qwen1.5-32b's int8 48 over 40 on one
+     rank's 16384 slots) and the merge kernel (``attn_merge``) of 2 and 4
+     ranks, at D = 512 too; 6c: ``kv_seq_shard`` at (1, 2), qwen1.5-32b at
+     full width (float32 depth 2 held to one rank within 1e-3, bf16 depth
+     8 over a B=8 x 32768 int8 cache split by slots held to one rank on
+     the same codes, a warm step, each rank's peak memory and bytes sent)
+     and deepseek-v3 with TP of MLA (float32 depth 2 with and without the
+     flag, the loss and every gradient within 1e-3; bf16 depth 4 with its
+     MoE layer under EP, the two decodes held to each other). Any rank's
+     failure fails the phase.
 ``python3 chip_smoke.py --mesh-only`` runs phases 1 and 6 alone and prints
 no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -2195,13 +2206,13 @@ def _p6_setup():
     torch.set_num_threads(2)
 
 
-def _p6_ctx(model_par, ep_axes=("model",)):
+def _p6_ctx(model_par, ep_axes=("model",), kv_seq_shard=False):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models.sharding import ShardCtx
     return ShardCtx(mesh=make_mesh_for(dist.get_world_size(), model_par),
-                    ep_axes=tuple(ep_axes))
+                    ep_axes=tuple(ep_axes), kv_seq_shard=kv_seq_shard)
 
 
 def _seeded(cfg, dtype, dev, ctx=None):
@@ -2213,22 +2224,30 @@ def _seeded(cfg, dtype, dev, ctx=None):
 
 
 def _grow(caches, extra):
-    """Prefill caches with ``extra`` more positions of K/V to decode into."""
+    """Prefill caches with ``extra`` more positions (K/V or MLA latents,
+    dim 2 of each leaf) to decode into."""
     import torch.nn.functional as F
-    return [[{"mix": {k: F.pad(v, (0, 0, 0, 0, 0, extra))
+    return [[{"mix": {k: F.pad(v, (0, 0) * (v.dim() - 3) + (0, extra))
                       for k, v in lay["mix"].items()}} for lay in seg]
             for seg in caches]
 
 
 @torch.no_grad()
-def _decode(model, tokens, steps, feed=None):
+def _decode(model, tokens, steps, feed=None, seq=False):
     """Prefill ``tokens`` [B, T] (numpy), then ``steps`` decode steps fed the
     greedy picks or ``feed`` [B, steps]. Returns the real vocab's logits of
-    each call (float32, on the host) and the picks [B, steps + 1]."""
+    each call (float32, on the host) and the picks [B, steps + 1]. With
+    ``seq`` the prefill's caches are handed to decode as a logical decode
+    cache (every real KV head, ``join_kv_heads``) cut into the rank's slots
+    (``shard_cache``: all of them unless ``kv_seq_shard``), the Stage-3
+    hand-over of the sequence-sharded layout."""
+    from repro_torch.launch.shardings import join_kv_heads, shard_cache
     dev, vocab = model.device, model.cfg.vocab
     toks = torch.as_tensor(tokens, device=dev)
     lg, caches = model.prefill({"tokens": toks})
     caches = _grow(caches, steps)
+    if seq:
+        caches = shard_cache(join_kv_heads(caches, model), model.ctx)
     outs, picks = [lg], [lg[:, 0, :vocab].argmax(-1)]
     for s in range(steps):
         tok = (picks[-1][:, None] if feed is None else
@@ -2240,11 +2259,15 @@ def _decode(model, tokens, steps, feed=None):
             torch.stack(picks, 1).cpu())
 
 
-def _serve_launches():
+def _serve_launches(merge=False):
+    from repro_torch.kernels import attn_split as sp
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    return {"flash_attention": fa.flash_attention,
-            "decode_attention": da.decode_attention}
+    out = {"flash_attention": fa.flash_attention,
+           "decode_attention": da.decode_attention}
+    if merge:
+        out["attn_merge"] = sp.attn_merge
+    return out
 
 
 def _rows(t, ctx):
@@ -2600,6 +2623,147 @@ def phase_mesh_kernels():
     return rows
 
 
+#: the partial mode's output and lse are float32 on both sides: the
+#: kernel's exp2/log2 approximations and summation order (as ``LSE_TOL``)
+PARTIAL_TOL = LSE_TOL
+
+
+def partial_case(label, dtype, B, H, D, S, m, kv_heads, kv_map, lengths, *,
+                 int8=False, plain_reps=REPS):
+    """The decode kernel's partial mode on a rank's slots: the ``S`` slots
+    of row 2's inputs (``decode_case``'s generator, so the whole cache is
+    that case's) cut into ``m`` blocks, each rank's partial (float32 output
+    and base-2 lse over its block, lengths clamped to it) held to the plain
+    partial, output row by row within ``PARTIAL_TOL`` of its largest value,
+    lse within ``PARTIAL_TOL`` (the same rows -inf); rank 0's call timed,
+    with SDPA over rank 0's slots as the yardstick (its output only; no
+    library call writes the lse). Returns (the row, the inputs, every
+    rank's partials)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.models.blocks import _KV_QSCALE, _kv_load, _kv_store
+    g = torch.Generator(device="cuda").manual_seed(S + D)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, kv_heads, D, generator=g,
+                        device="cuda").to(dtype) for _ in range(2))
+    kv_scale = None
+    if int8:
+        k, v = (_kv_store(x, torch.int8) for x in (k, v))
+        kv_scale = 1.0 / _KV_QSCALE
+    kv_map = map_tensor(H, kv_heads, kv_map)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")[:B]
+    n = S // m
+    kw = dict(kv_map=kv_map, kv_scale=kv_scale, partial=True)
+    parts, err = [], 0.0
+    for r in range(m):
+        kr, vr = k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n]
+        lr = (lengths - r * n).clamp(0, n)
+        o, lse = decode_attention(q, kr, vr, lr, **kw)
+        po, plse = decode_attention_plain(q, kr, vr, lr, **kw)
+        torch.cuda.synchronize()
+        name = (f"decode_attention partial[{label} rank {r} of {m}: B={B},"
+                f"S={n} of {S},D={D},H={H},Hk={kv_heads},{str(dtype)[6:]}"
+                f"{', K/V int8' if int8 else ''}]")
+        err = max(err, check_rows(name + " o", o, po, PARTIAL_TOL))
+        same_inf = torch.equal(torch.isinf(lse), torch.isinf(plse))
+        fin = torch.isfinite(plse)
+        lerr = float((lse[fin] - plse[fin]).abs().max()) if fin.any() else 0
+        ok = same_inf and lerr <= PARTIAL_TOL * max(
+            1.0, float(plse[fin].abs().max()) if fin.any() else 1.0)
+        log(f"  {name} lse: max_abs_err={lerr:.3e}, rows seeing no key "
+            f"{int((~fin).sum())} (the same rows -inf: {same_inf}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name}: the partial's lse disagrees")
+        parts.append((o, lse))
+    l0 = (lengths).clamp(0, n)
+    keys = int(l0.sum())
+    es = k.element_size()
+    flops = 4.0 * H * D * keys
+    nbytes = (2 * keys * kv_heads * D * es + B * H * D * q.element_size()
+              + B * H * (D + 1) * 4 + 4 * B)
+    k0, v0 = k[:, :n], v[:, :n]
+    mask = (torch.arange(n, device="cuda")[None] < l0[:, None])
+    qt = q[:, :, None]
+    kt, vt = (expanded(_kv_load(x, dtype), kv_map).transpose(1, 2)
+              for x in (k0, v0))
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None, None])
+    row = _timed(f"partial {label} rank 0",
+                 lambda: decode_attention(q, k0, v0, l0, **kw),
+                 lambda: decode_attention_plain(q, k0, v0, l0, **kw), lib,
+                 flops, nbytes, dtype, err, plain_reps=plain_reps)
+    return row, (q, k, v, lengths, kv_map, kv_scale), parts
+
+
+def merge_case(label, m, R, D, dtype):
+    """``attn_merge`` (the combine kernel launched on its own) of ``m``
+    ranks' float32 partials of ``R`` rows at ``D``, some ranks empty for a
+    row and one row empty on every rank, into ``dtype``, against
+    ``merge_partials``; timed (no library call computes it: null)."""
+    from repro_torch.kernels.attn_split import attn_merge, merge_partials
+    g = torch.Generator(device="cuda").manual_seed(m * R + D)
+    o = torch.randn(m, R, D, generator=g, device="cuda")
+    lse = torch.randn(m, R, generator=g, device="cuda") * 4
+    lse[0, ::3] = -math.inf
+    lse[:, 1] = -math.inf
+    got = attn_merge(o, lse, dtype)
+    again = attn_merge(o, lse, dtype)
+    want = merge_partials(o, lse)
+    torch.cuda.synchronize()
+    name = f"attn_merge[{label}: m={m}, R={R}, D={D}, into {str(dtype)[6:]}]"
+    err = check(name, got, want, TOL[dtype])
+    if not (torch.equal(got, again) and torch.all(got[1] == 0)):
+        raise SystemExit(f"{name}: two calls differ, or an empty row is "
+                         "not 0")
+    nbytes = m * R * (D + 1) * 4 + R * D * got.element_size()
+    return _timed(name, lambda: attn_merge(o, lse, dtype),
+                  lambda: merge_partials(o, lse).to(dtype), None,
+                  6.0 * m * R * D, nbytes, torch.float32, err)
+
+
+def phase_mesh_kernels_seq():
+    """6k's rows of the sequence-sharded decode (6c): 2ss, smollm's 16
+    over 5 at row 2's B=8 x 1024 (lengths 1, 1024, 0, 17, 128, 129, 512,
+    1000: rows that see nothing in a slice), cut into 2 slices of 512, each
+    slice's partial held to its plain version and the two merged by
+    ``attn_merge`` held to row 2g's single call on the whole; 2q8s,
+    qwen1.5-32b's 48 over 40 with int8 K/V, B=8, one rank's 16384 of 2q8's
+    32768 slots; merge, ``attn_merge`` of 2 and 4 ranks' partials at 2ss's
+    and 2q8s's rank shapes (B x H / m rows) and of deepseek-v3's latent
+    (D = 512, 6c's B = 2 x 64 heads a rank). Returns the rows, and the
+    merge row of the kernels line (2q8s's shape at m = 2, 6c's qwen
+    step's)."""
+    from repro_torch.kernels.attn_split import attn_merge
+    from repro_torch.kernels.decode_attention import decode_attention
+    log("[6k] the sequence-sharded decode's kernels: a rank's partial and "
+        "the ranks' merge (6c's shapes)")
+    bf = torch.bfloat16
+    rows = {}
+    rows["2ss"], (q, k, v, lengths, kv_map, _), parts = partial_case(
+        "2ss smollm 16 over 5", bf, 8, 16, 64, 1024, 2, 5, None,
+        [1, 1024, 0, 17, 128, 129, 512, 1000])
+    got = attn_merge(torch.stack([o.reshape(-1, 64) for o, _ in parts]),
+                     torch.stack([l.reshape(-1) for _, l in parts]),
+                     bf).reshape(8, 16, 64)
+    want = decode_attention(q, k, v, lengths, kv_map=kv_map)
+    torch.cuda.synchronize()
+    check("2ss: the 2 slices' partials merged vs row 2g's single call",
+          got, want, TOL[bf])
+    del q, k, v, parts, got, want
+    rows["2q8s"] = partial_case(
+        "2q8s qwen1.5-32b 48 over 40", bf, 8, 48, 128, QWEN_S, 2, 40,
+        list(range(48)), QWEN_LENGTHS, int8=True, plain_reps=2)[0]
+    gc_cuda()
+    for m in (2, 4):
+        rows[f"merge-2ss-m{m}"] = merge_case("2ss", m, 8 * 16 // m, 64, bf)
+        rows[f"merge-2q8s-m{m}"] = merge_case("2q8s", m, 8 * 48 // m, 128,
+                                              bf)
+    rows["merge-mla"] = merge_case("6c deepseek-v3 latent", 2, 2 * 64, 512,
+                                   torch.float32)
+    return rows, rows["merge-2q8s-m2"]
+
+
 def phase_mesh_nccl(card):
     """6.0: NCCL at world size 1, mesh (1, 1), in a process of its own:
     full-width smollm-360m's bf16 prefill logits and greedy tokens bitwise
@@ -2821,6 +2985,338 @@ def phase_mesh_moe(card):
             gc_cuda()
 
 
+#: 6c's qwen1.5-32b decode cell: depth 64 -> 8 in bf16 over JAX's
+#: decode_32k int8 cache, B=8 x 32768 slots sequence-sharded over 2 ranks
+SEQ_QWEN_DEPTH = 8
+#: 6c's bf16 logits, sharded vs one rank on the same weights and codes:
+#: bf16 partial sums all-reduced and matmuls blocked otherwise, over 8
+#: layers; a greedy pick may differ only where the reference's top two
+#: logits are within twice this (of the largest logit) apart
+SEQ_BF16_TOL = 5e-2
+
+
+def _fill_codes(caches, blocks, m, seed):
+    """Each token leaf of int8 ``caches`` filled with codes, layer by layer
+    and slot block by slot block of an ``m``-rank split, from a generator
+    seeded by (leaf, layer, block): ``blocks`` the blocks these leaves
+    hold, in order (a rank's one, or all m for the whole cache), so a rank
+    makes its own slots and the whole cache the same bytes. Nothing
+    crosses processes."""
+    idx = 0
+    for seg in caches:
+        for entry in seg:
+            for name in sorted(entry["mix"]):
+                t = entry["mix"][name]
+                n = t.shape[2] // len(blocks)
+                for c in range(t.shape[0]):
+                    for j, r in enumerate(blocks):
+                        g = torch.Generator(t.device).manual_seed(
+                            seed + (idx * m + r))
+                        t[c, :, j * n:(j + 1) * n] = torch.randint(
+                            -127, 128, t[c, :, j * n:(j + 1) * n].shape,
+                            generator=g, device=t.device, dtype=torch.int8)
+                    idx += 1
+
+
+def _qwen_step_inputs(cfg):
+    """6c's int8 step: B=8 sequences at positions ``QWEN_LENGTHS - 1`` of
+    a 32768-slot cache (after the step they hold ``QWEN_LENGTHS`` keys:
+    one at slot 0 alone, several in both ranks' slots), a seeded token
+    each."""
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (8, 1))
+    return toks, np.asarray(QWEN_LENGTHS) - 1
+
+
+@torch.no_grad()
+def _qwen_int8_step(model, caches, toks, pos, timed=0):
+    """One decode step over ``caches`` (the real vocab's float32 logits,
+    numpy), then ``timed`` warm steps at the same positions timed (ms a
+    step, host clock to a device sync)."""
+    dev = model.device
+    tok = torch.as_tensor(toks, device=dev)
+    p = torch.as_tensor(pos, device=dev)
+    lg, _ = model.decode_step(caches, tok, p)
+    out = lg[:, 0, :model.cfg.vocab].float().cpu().numpy()
+    ms = None
+    if timed:
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            model.decode_step(caches, tok, p)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) / timed * 1e3
+    return out, ms
+
+
+def p6_seq_dense_rank(rank, dev, cfg, prompts, steps):
+    """6c's qwen1.5-32b on its rank at (1, 2) with ``kv_seq_shard``: full
+    width at depth 2 in float32, a prefill of ``prompts`` and ``steps``
+    greedy steps over the sequence-sharded cache; then depth
+    ``SEQ_QWEN_DEPTH`` in bf16 over an int8 cache of B=8 x 32768 slots,
+    the rank's 16384 filled by ``_fill_codes``, one step and 3 warm ones
+    timed."""
+    import dataclasses
+    _p6_setup()
+    ctx = _p6_ctx(2, kv_seq_shard=True)
+    r = ctx.index("model")
+    out = {"rank": rank}
+    wrappers = _serve_launches(merge=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    _reset(dev)
+    model = _seeded(dataclasses.replace(cfg, n_layers=2), torch.float32,
+                    dev, ctx)
+    logits, picks = _decode(model, prompts, steps, seq=True)
+    out["logits"] = [x.numpy() for x in logits]
+    out["picks"] = picks.numpy()
+    out["launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    out["peak_f32"] = _peak(dev)
+    del model
+    torch.cuda.empty_cache()
+    _reset(dev)
+    model = _seeded(dataclasses.replace(cfg, n_layers=SEQ_QWEN_DEPTH),
+                    torch.bfloat16, dev, ctx)
+    caches = model.init_cache(8, QWEN_S, kv_dtype=torch.int8)
+    out["cache_gb"] = sum(t.numel() for seg in caches for e in seg
+                          for t in e["mix"].values()) / 1e9
+    out["weights_gb"] = sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9
+    _fill_codes(caches, [r], 2, seed=80)
+    toks, pos = _qwen_step_inputs(cfg)
+    _reset(dev)                 # the step's peak, not the fill's
+    ctx.stats.zero()
+    out["int8_logits"], _ = _qwen_int8_step(model, caches, toks, pos)
+    out["seq_bytes"] = ctx.stats.seq_bytes
+    _, out["warm_ms"] = _qwen_int8_step(model, caches, toks, pos, timed=3)
+    out["peak_int8"] = _peak(dev)
+    return out
+
+
+def p6_seq_mla_rank(rank, dev, cfg2, prompts, steps, grads_bt, cfg4,
+                    prompts4):
+    """6c's deepseek-v3 on its rank at (1, 2) with TP of MLA: ``cfg2``
+    (depth 2, the experts cut out) in float32, a prefill of ``prompts`` and
+    ``steps`` greedy steps over the whole latent cache, then over the
+    sequence-sharded one (the flag is read at each decode call); the loss
+    and every gradient of ``grads_bt`` = (B, T), gathered to rank 0
+    leaf by leaf, where the unsharded model on the same card then computes
+    its own and the largest difference over each leaf's largest value is
+    taken; then ``cfg4`` (depth 4, the MoE layer under classic EP) in bf16,
+    ``prompts4`` prefilled and decoded both ways, a warm step timed."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.shardings import (gather_to_root, grad_sum_axes,
+                                              model_splits, shard_batch)
+    from repro_torch.training.trainer import sync_grads
+    _p6_setup()
+    ctx = _p6_ctx(2)
+    out = {"rank": rank}
+    wrappers = _serve_launches(merge=True)
+    model = _seeded(cfg2, torch.float32, dev, ctx)
+    for seq in (False, True):
+        ctx.kv_seq_shard = seq
+        for fn in wrappers.values():
+            fn.launches = 0
+        ctx.stats.zero()
+        logits, picks = _decode(model, prompts, steps, seq=True)
+        out[seq] = {"logits": [x.numpy() for x in logits],
+                    "picks": picks.numpy(),
+                    "launches": {n: fn.launches
+                                 for n, fn in wrappers.items()},
+                    "seq_bytes": ctx.stats.seq_bytes // steps}
+    ctx.kv_seq_shard = False
+    B, T = grads_bt
+    model.requires_grad_(True)
+    batch = launch.synthetic_batch(cfg2, B, T, seed=0, step=0, device=dev)
+    loss = model.loss(shard_batch(batch, ctx))
+    loss.backward()
+    shards = model_splits(model)
+    grads = sync_grads({n: p.grad for n, p in model.named_parameters()},
+                       {n: grad_sum_axes(n, sp, cfg2, ctx)
+                        for n, sp in shards.items()}, ctx)
+    out["loss"] = float(loss.detach())
+    got = {n: gather_to_root(g, shards[n], ctx) for n, g in grads.items()}
+    del model, grads, loss
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref = _seeded(cfg2, torch.float32, dev)
+        ref.requires_grad_(True)
+        loss = ref.loss(batch)
+        loss.backward()
+        out["ref_loss"] = float(loss.detach())
+        worst, worst_name = 0.0, None
+        for n, p in ref.named_parameters():
+            want = p.grad.float()
+            d = float((got[n].to(dev) - want).abs().max()) / float(
+                want.abs().max())
+            if d > worst:
+                worst, worst_name = d, n
+        out["grad_worst"], out["grad_worst_name"] = worst, worst_name
+        out["n_grads"] = len(got)
+        del ref, loss
+    del got
+    torch.cuda.empty_cache()
+    _reset(dev)
+    model = _seeded(cfg4, torch.bfloat16, dev, ctx)
+    out["weights4_gb"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 1e9
+    for seq in (False, True):
+        ctx.kv_seq_shard = seq
+        for fn in wrappers.values():
+            fn.launches = 0
+        ctx.stats.zero()
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, picks = _decode(model, prompts4, steps, seq=True)
+        _sync(dev)
+        out[("bf16", seq)] = {
+            "logits": [x.numpy() for x in logits], "picks": picks.numpy(),
+            "launches": {n: fn.launches for n, fn in wrappers.items()},
+            "seq_bytes": ctx.stats.seq_bytes // steps,
+            "serve_s": time.perf_counter() - t0}
+    out["peak4"] = _peak(dev)
+    return out
+
+
+def _near_tie_flips(got_picks, want_logits, want_picks, tol):
+    """Greedy picks that differ from the reference's where its top two
+    logits are more than ``2 tol`` (of the largest logit) apart: each
+    call's picks [B] against the reference's logits [B, 1, V]."""
+    bad, differ = 0, 0
+    for i, lg in enumerate(want_logits):
+        lg = lg[:, -1]
+        scale = float(np.abs(lg).max())
+        for b in np.nonzero(got_picks[:, i] != want_picks[:, i])[0]:
+            differ += 1
+            if lg[b].max() - lg[b, got_picks[b, i]] > 2 * tol * scale:
+                bad += 1
+    return differ, bad
+
+
+def phase_mesh_seq(card):
+    """6c: the sequence-sharded decode (``kv_seq_shard``, JAX's decode
+    layout) and TP of MLA at (1, 2), both ranks on the one card over gloo.
+    qwen1.5-32b at full width: float32 at depth 2, a prefill of 2 x 256
+    tokens and ``P6_STEPS`` greedy steps, logits within 1e-3 of the
+    largest logit of the single-rank card run and tokens equal; bf16 at
+    depth ``SEQ_QWEN_DEPTH`` over JAX's decode_32k int8 cache, B=8 x 32768
+    slots, each rank's half made by ``_fill_codes`` and the single-rank
+    reference's whole cache the same bytes, one step's logits within
+    ``SEQ_BF16_TOL`` of the largest, a warm step timed, each rank's peak
+    memory and bytes exchanged a step. deepseek-v3 at full width with TP
+    of MLA: float32 at depth 2 with the experts cut out (as 4h), prefill +
+    ``P6_STEPS`` steps with and without ``kv_seq_shard`` each within 1e-3
+    of one rank and tokens equal, the loss and every logical gradient
+    within 1e-3 of each leaf's largest value; then bf16 at 3h's depth 4
+    (the MoE layer under classic EP), the two decodes held to each other
+    at ``SEQ_BF16_TOL``, each rank's peak memory."""
+    import dataclasses
+    import tempfile
+    qwen = _arch("qwen1.5-32b")
+    prompts = np.random.default_rng(9).integers(0, qwen.vocab, (2, 256))
+    log(f"[6c] mesh (1, 2), kv_seq_shard: the decode caches split by slots "
+        f"over 2 ranks on one card ({card}), gloo through host memory")
+    model = _seeded(dataclasses.replace(qwen, n_layers=2), torch.float32,
+                    "cuda")
+    want, want_picks = _decode(model, prompts, P6_STEPS)
+    del model
+    gc_cuda()
+    model = _seeded(dataclasses.replace(qwen, n_layers=SEQ_QWEN_DEPTH),
+                    torch.bfloat16, "cuda")
+    caches = model.init_cache(8, QWEN_S, kv_dtype=torch.int8)
+    _fill_codes(caches, [0, 1], 2, seed=80)
+    toks, pos = _qwen_step_inputs(qwen)
+    want8, one_ms = _qwen_int8_step(model, caches, toks, pos, timed=3)
+    del model, caches
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall = _mesh_spawn(p6_seq_dense_rank, 2, (
+            qwen, prompts, P6_STEPS), tmp, "pg-seq-dense")
+    r0 = res[0]
+    rel = _rel(r0["logits"], [x.numpy() for x in want])
+    same = np.array_equal(r0["picks"], want_picks.numpy())
+    log(f"  qwen1.5-32b depth 2 float32 (1, 2) seq-sharded: 2 ranks in "
+        f"{wall:.1f} s; prefill 2 x 256 + {P6_STEPS} steps, logits relative "
+        f"difference {rel:.3e} (tol 1e-3), greedy tokens equal: {same}; "
+        f"launches a rank {[r['launches'] for r in res]}; peak memory a "
+        f"rank {['%.2f GB' % r['peak_f32'] for r in res]}")
+    if not (rel <= 1e-3 and same):
+        raise SystemExit("6c: the sequence-sharded qwen decode disagrees "
+                         "with one rank")
+    for r in res:
+        assert all(v > 0 for v in r["launches"].values()), r["launches"]
+    w8 = want8
+    rel8 = float(np.abs(r0["int8_logits"] - w8).max()) / float(
+        np.abs(w8).max())
+    picks8 = r0["int8_logits"].argmax(-1)[:, None]
+    differ, bad = _near_tie_flips(picks8, [w8[:, None]],
+                                  w8.argmax(-1)[:, None], SEQ_BF16_TOL)
+    log(f"  qwen1.5-32b depth {SEQ_QWEN_DEPTH} bf16, int8 cache B=8 x "
+        f"{QWEN_S} ({r0['cache_gb']:.2f} GB a rank, weights "
+        f"{r0['weights_gb']:.2f} GB a rank): one step's logits vs one rank "
+        f"on the same codes, relative {rel8:.3e} (tol {SEQ_BF16_TOL:g}), "
+        f"argmax differing {differ} of 8 (past a near tie: {bad}); a warm "
+        f"step {r0['warm_ms']:.2f} ms on rank 0 (one rank alone "
+        f"{one_ms:.2f} ms; {card}, 2 ranks sharing the card, gloo through "
+        f"host memory); sent a step by each rank "
+        f"{[r['seq_bytes'] for r in res]} B (q gathered, partials); peak "
+        f"memory a rank over the steps "
+        f"{['%.2f GB' % r['peak_int8'] for r in res]}")
+    if not (rel8 <= SEQ_BF16_TOL and bad == 0):
+        raise SystemExit("6c: the sequence-sharded int8 step disagrees "
+                         "with one rank")
+    launches = {"attn_merge": r0["launches"]["attn_merge"]}
+    ds = _arch("deepseek-v3-671b")
+    cfg2 = dataclasses.replace(ds, n_layers=2, n_experts=0)
+    cfg4 = dataclasses.replace(ds, n_layers=MLA_DEPTH)
+    mprompts = np.random.default_rng(10).integers(0, ds.vocab, (2, 256))
+    model = _seeded(cfg2, torch.float32, "cuda")
+    wantm, wantm_picks = _decode(model, mprompts, P6_STEPS)
+    del model
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall = _mesh_spawn(p6_seq_mla_rank, 2, (
+            cfg2, mprompts, P6_STEPS, (2, 256), cfg4, mprompts[:, :128]),
+            tmp, "pg-seq-mla")
+    r0 = res[0]
+    for seq in (False, True):
+        got = r0[seq]
+        rel = _rel(got["logits"], [x.numpy() for x in wantm])
+        same = np.array_equal(got["picks"], wantm_picks.numpy())
+        log(f"  deepseek-v3 depth 2 (experts cut) float32 (1, 2), TP of MLA"
+            f"{', kv_seq_shard' if seq else ''}: logits relative "
+            f"{rel:.3e} (tol 1e-3), greedy tokens equal: {same}; launches "
+            f"a rank {[r[seq]['launches'] for r in res]}; sent a step by "
+            f"rank 0 {got['seq_bytes']} B")
+        if not (rel <= 1e-3 and same):
+            raise SystemExit("6c: MLA under TP disagrees with one rank")
+        if seq:
+            assert all(r[seq]["launches"]["attn_merge"] > 0 for r in res)
+    rel_loss = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    log(f"  deepseek-v3 depth 2 float32 (1, 2), B=2 x 256 with the MTP "
+        f"term: loss {r0['loss']:.6f} vs {r0['ref_loss']:.6f} (relative "
+        f"{rel_loss:.2e}, tol 1e-5); {r0['n_grads']} logical gradients, "
+        f"the largest difference over the leaf's largest value "
+        f"{r0['grad_worst']:.3e} ({r0['grad_worst_name']}; tol 1e-3)")
+    if not (rel_loss <= 1e-5 and r0["grad_worst"] <= 1e-3):
+        raise SystemExit("6c: MLA's sharded gradients disagree")
+    a, b = r0[("bf16", False)], r0[("bf16", True)]
+    rel4 = _rel(b["logits"], a["logits"])
+    differ, bad = _near_tie_flips(b["picks"], a["logits"], a["picks"],
+                                  SEQ_BF16_TOL)
+    log(f"  deepseek-v3 depth {MLA_DEPTH} bf16 (1, 2), TP of MLA, classic "
+        f"EP ({r0['weights4_gb']:.2f} GB of weights a rank): prefill 2 x "
+        f"128 + {P6_STEPS} steps with kv_seq_shard vs without, logits "
+        f"relative {rel4:.3e} (tol {SEQ_BF16_TOL:g}), greedy tokens "
+        f"differing {differ} (past a near tie: {bad}); {b['serve_s']:.2f} s"
+        f" vs {a['serve_s']:.2f} s on rank 0 ({card}, gloo on one card); "
+        f"sent a step by rank 0 {b['seq_bytes']} B; launches a rank "
+        f"{[r[('bf16', True)]['launches'] for r in res]}; peak memory a "
+        f"rank {['%.2f GB' % r['peak4'] for r in res]}")
+    if not (rel4 <= SEQ_BF16_TOL and bad == 0):
+        raise SystemExit("6c: MLA's sequence-sharded bf16 decode disagrees")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2868,8 +3364,9 @@ def main() -> int:
         # phase 6 alone (after the build), to rehearse it on the card; the
         # smoke's result lines come only from a run of every phase
         run_phase("6k", phase_mesh_kernels)
+        run_phase("6k", phase_mesh_kernels_seq)
         for label, fn in (("6.0", phase_mesh_nccl), ("6a", phase_mesh_smollm),
-                          ("6b", phase_mesh_moe)):
+                          ("6b", phase_mesh_moe), ("6c", phase_mesh_seq)):
             run_phase(label, fn, card)
         log(f"  mesh phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2960,9 +3457,13 @@ def main() -> int:
     # the mesh: the kernels at a rank's heads, then ranks spawned on the
     # one card, after the card is freed
     run_phase("6k", phase_mesh_kernels)
+    _, main_cases["attn_merge"] = run_phase("6k", phase_mesh_kernels_seq)
     run_phase("6.0", phase_mesh_nccl, card)
     run_phase("6a", phase_mesh_smollm, card)
     run_phase("6b", phase_mesh_moe, card)
+    # the sequence-sharded decode: the merge kernel's main path (its
+    # launches are 6c's qwen run's, rank 0's)
+    launches.update(run_phase("6c", phase_mesh_seq, card))
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),
@@ -2971,6 +3472,13 @@ def main() -> int:
                    "src/repro/kernels/flash_xla.py:104"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:110"),
+               # no TPU kernel: XLA merges the softmax across the shards
+               # of the JAX package's sequence-sharded cache
+               "attn_merge": (
+                   "src/repro_torch/csrc/attn_merge.cu",
+                   "XLA's cross-shard softmax of the sequence-sharded "
+                   "cache, src/repro/models/blocks.py:162 (attn_apply), "
+                   ":302 (mla_apply)"),
                "ssd_chunked": ("src/repro_torch/csrc/ssd_scan.cu",
                                "src/repro/kernels/ssd_scan.py:85"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",

@@ -13,9 +13,15 @@
 //
 // and 0 for a row whose every chunk is empty (no visible key). The plain
 // PyTorch version of the same rule is kernels/attn_split.py::merge_partials.
-// With lse_out (the prefill forward's, for the backward), it also writes
-// the row's merged log-sum-exp in base e, (M + log2 den) ln 2, -inf for an
-// empty row, at [B, H, T] (row r = (b T + t) H + h of the partials).
+// With lse_out it also writes the row's merged log-sum-exp, (M + log2 den)
+// lse_scale, -inf for an empty row, at [B, H, T] (row r = (b T + t) H + h
+// of the partials): in base e (lse_scale = ln 2) for the prefill forward's
+// backward, in base 2 (lse_scale = 1, T = 1: row r at r) for the decode
+// kernel's partial mode, whose output is a rank's partial in its turn.
+//
+// The same combine merges the ranks' partials of a sequence-sharded decode
+// (attn_merge.cu): there the chunks are the ranks, each partial normalised
+// over the rank's slots.
 
 #pragma once
 
@@ -70,7 +76,7 @@ template <typename Elem>
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const float* __restrict__ opart, const float* __restrict__ lse,
                Elem* __restrict__ out, int n_split, long long R, int D,
-               float* __restrict__ lse_out, int T, int H) {
+               float* __restrict__ lse_out, int T, int H, float lse_scale) {
   const int nq = D / 4;
   const long long i = blockIdx.x * static_cast<long long>(kCombineThreads) +
                       threadIdx.x;
@@ -98,7 +104,7 @@ combine_kernel(const float* __restrict__ opart, const float* __restrict__ lse,
   if (lse_out != nullptr && c4 == 0) {
     const long long bt = r / H, b = bt / T;
     lse_out[(b * H + r % H) * T + bt % T] =
-        den > 0.f ? (m + log2f(den)) * 0.6931471805599453f : -INFINITY;
+        den > 0.f ? (m + log2f(den)) * lse_scale : -INFINITY;
   }
   store4(out + r * D + 4 * c4,
          make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv));
@@ -108,12 +114,14 @@ template <typename Elem>
 cudaError_t launch_combine(const float* opart, const float* lse, void* out,
                            int n_split, long long R, int D,
                            cudaStream_t stream, float* lse_out = nullptr,
-                           int T = 1, int H = 1) {
+                           int T = 1, int H = 1,
+                           float lse_scale = 0.6931471805599453f) {
   const long long blocks = (R * (D / 4) + kCombineThreads - 1) /
                            kCombineThreads;
   combine_kernel<Elem><<<static_cast<unsigned>(blocks), kCombineThreads, 0,
                          stream>>>(opart, lse, static_cast<Elem*>(out),
-                                   n_split, R, D, lse_out, T, H);
+                                   n_split, R, D, lse_out, T, H,
+                                   lse_scale);
   return cudaGetLastError();
 }
 

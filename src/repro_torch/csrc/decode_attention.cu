@@ -45,6 +45,18 @@
 //   * a chunk at or past lengths[b] writes an empty partial; with n_split
 //     > 1 the chunks' partials are merged by attn_split.cuh's combine
 //     kernel, with n_split = 1 the block writes the output.
+//
+// Partial mode (a rank's share of a sequence-sharded cache): k/v are the
+// rank's slots, lengths the keys it holds of each sequence (0 for a
+// sequence none of whose keys it holds), and the output is the rank's
+// partial in float32, normalised over those keys, with its base-2
+// log-sum-exp lse [B, H] (-inf and an output of 0 for a row that sees no
+// key): what a split-KV chunk writes, for the ranks' partials to be merged
+// by the same combine (attn_merge.cu). With n_split = 1 the block writes
+// both into the output and lse; with n_split > 1 the combine merges the
+// chunks in float32 and writes the merged lse in base 2. The partial stays
+// float32: rounded to q's type it would lose bits before the ranks' merge
+// that one softmax over the whole cache keeps.
 // bfloat16 and float32 take the same design and compute in float32 on the
 // CUDA cores.
 //
@@ -61,7 +73,8 @@
 //
 // Plain C interface (bound from Python with ctypes). The caller allocates
 // the output [B,H,D] contiguous and, when n_split > 1, the float32 scratch
-// opart [n_split, B*H, D] and lse [n_split, B*H]. Inputs may be strided
+// opart [n_split, B*H, D] and lse [n_split, B*H]; in partial mode the
+// output is float32 and lse_out [B*H] float32. Inputs may be strided
 // except along D; their addresses and strides are multiples of 16 bytes
 // (the wrapper makes a copy otherwise).
 
@@ -90,6 +103,8 @@ struct Params {
   void* o;
   float* opart;        // [n_split, B*H, D] when n_split > 1
   float* lse;          // [n_split, B*H]
+  float* lse_out;      // [B*H], base 2, in partial mode (else null)
+  int partial;         // 1: o is float32, lse_out written
   int B, S, H, Hk;
   long long q_sb, q_sh;
   Strides ks, vs;
@@ -406,11 +421,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     const float l = l_s[g];
     const float y = x / l * p.kv_scale;          // V's unit folded in
     const long long r = static_cast<long long>(b) * p.H + heads[g];
-    if (p.n_split == 1) {
+    if (p.n_split == 1 && !p.partial) {
       store(static_cast<E*>(p.o) + r * D + d, l > 0.f ? y : 0.f);
-    } else {
+    } else {     // a chunk's partial, or the rank's (opart = o, lse = out)
       const long long pr = split * R + r;
-      if (l > 0.f) p.opart[pr * D + d] = y;
+      p.opart[pr * D + d] = l > 0.f ? y : 0.f;
       if (d == 0) p.lse[pr] = l > 0.f ? m_s[g] + log2f(l) : -INFINITY;
     }
   }
@@ -432,8 +447,11 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   decode_kernel<E, KV, D><<<grid, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  return launch_combine<E>(p.opart, p.lse, p.o, p.n_split,
-                           static_cast<long long>(p.B) * p.H, D, stream);
+  const long long R = static_cast<long long>(p.B) * p.H;
+  if (p.partial)      // float32 output, the merged lse in base 2
+    return launch_combine<float>(p.opart, p.lse, p.o, p.n_split, R, D,
+                                 stream, p.lse_out, 1, p.H, 1.f);
+  return launch_combine<E>(p.opart, p.lse, p.o, p.n_split, R, D, stream);
 }
 
 template <typename E, typename KV>
@@ -479,23 +497,30 @@ extern "C" int decode_attention_cap(int D) {
 // dtype, or 2 = int8 codes of value code * kv_scale (kv_scale is 1 for K/V
 // in q's type). Strides are in elements; lengths is a device array of B
 // int32, kv_map one of H int32 or null; opart/lse are the split scratch
-// (null when n_split == 1). cap is the query heads a block holds (<=
-// decode_attention_cap(D)), n_hb = ceil(H / cap). Returns the cudaError_t
-// of the launches.
+// (null when n_split == 1). With partial, o is float32 and lse_out the
+// [B*H] float32 base-2 log-sum-exp (see the partial mode above). cap is the
+// query heads a block holds (<= decode_attention_cap(D)), n_hb = ceil(H /
+// cap). Returns the cudaError_t of the launches.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* kv_map, void* o, void* opart, void* lse, int dtype,
+    const void* kv_map, void* o, void* opart, void* lse, void* lse_out,
+    int partial, int dtype,
     int kv_dtype, int B, int S, int H, int Hk, int D, long long q_sb,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, float scale,
     float kv_scale, int chunk, int n_split, int n_hb, int cap,
     void* stream) {
-  const Params p{q, k, v, static_cast<const int*>(lengths),
-                 static_cast<const int*>(kv_map), o,
-                 static_cast<float*>(opart), static_cast<float*>(lse),
-                 B, S, H, Hk, q_sb, q_sh, {k_sb, k_ss, k_sh},
-                 {v_sb, v_ss, v_sh}, scale, kv_scale, chunk, n_split, n_hb,
-                 cap, 1};
+  Params p{q, k, v, static_cast<const int*>(lengths),
+           static_cast<const int*>(kv_map), o,
+           static_cast<float*>(opart), static_cast<float*>(lse),
+           static_cast<float*>(lse_out), partial,
+           B, S, H, Hk, q_sb, q_sh, {k_sb, k_ss, k_sh},
+           {v_sb, v_ss, v_sh}, scale, kv_scale, chunk, n_split, n_hb,
+           cap, 1};
+  if (partial && n_split == 1) {     // the one chunk's partial is the rank's
+    p.opart = static_cast<float*>(o);
+    p.lse = p.lse_out;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_kv<float>(dtype, kv_dtype, D, p, st);
   if (dtype == 1)

@@ -23,11 +23,13 @@ __all__ = ["load", "build_all", "SOURCES", "DEPS", "CSRC", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
+           "attn_merge", "ssd_scan", "ssd_scan_bwd", "rglru_scan",
+           "rglru_scan_bwd")
 #: the headers under ``csrc/`` each source includes: a change rebuilds it
 DEPS = {"flash_attention": ("attn_split.cuh", "mma_bf16.cuh"),
         "flash_attention_bwd": ("attn_split.cuh", "hopper.cuh"),
         "decode_attention": ("attn_split.cuh",),
+        "attn_merge": ("attn_split.cuh",),
         "ssd_scan": ("tf32x3.cuh",),
         "ssd_scan_bwd": ("tf32x3.cuh",)}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,16 +13,25 @@ row's output normalised over its own keys, ``o_c``, and the base-2
 log-sum-exp of its scores, ``lse_c`` (``-inf`` for a chunk that sees no
 key). ``merge_partials`` is the plain version of the combine kernel in
 ``csrc/attn_split.cuh``.
+
+``attn_merge`` is that combine launched on its own (``csrc/attn_merge.cu``)
+to merge the partials of a sequence-sharded decode, one a rank of the model
+axis (``models.blocks``): a CPU tensor goes to ``merge_partials``, a CUDA
+tensor launches the kernel or raises; ``attn_merge.launches`` counts the
+calls that launched.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
 import torch
 
-__all__ = ["expand_kv", "merge_partials", "check_kv_map", "aligned",
-           "sm_count", "DTYPES"]
+from . import _build
+
+__all__ = ["expand_kv", "merge_partials", "attn_merge", "check_kv_map",
+           "aligned", "sm_count", "DTYPES"]
 
 #: dtypes the attention kernels take, by their code in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +59,53 @@ def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     num = (w[..., None] * o).sum(0)
     return torch.where(den[:, None] > 0, num / den.clamp(min=1e-30)[:, None],
                        0.0)
+
+
+def _merge_lib() -> ctypes.CDLL:
+    lib = _build.load("attn_merge")
+    fn = lib.attn_merge
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, I, I, ctypes.c_longlong, I, P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def attn_merge(o: torch.Tensor, lse: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``merge_partials`` of o [n, R, D] and lse [n, R] (float32, base 2)
+    into [R, D] of ``dtype`` (default float32): the combine kernel on a CUDA
+    tensor (D a multiple of 4), the plain version on a CPU one."""
+    dtype = dtype or torch.float32
+    if o.device.type == "cpu":
+        return merge_partials(o, lse).to(dtype)
+    if o.device.type != "cuda":
+        raise ValueError(f"attn_merge: no kernel for {o.device}")
+    n, R, D = o.shape
+    if lse.shape != (n, R) or o.dtype != torch.float32 \
+            or lse.dtype != torch.float32 or lse.device != o.device:
+        raise ValueError(f"attn_merge: partials {o.dtype} {tuple(o.shape)}, "
+                         f"lse {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}; both float32 on one device")
+    if D % 4 or dtype not in DTYPES:
+        raise ValueError(f"attn_merge: D={D} (a multiple of 4) into "
+                         f"{dtype} (float32 or bfloat16)")
+    o, lse = aligned(o.contiguous()), lse.contiguous()
+    out = torch.empty((R, D), dtype=dtype, device=o.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    err = _merge_lib().attn_merge(o.data_ptr(), lse.data_ptr(),
+                                  out.data_ptr(), DTYPES[dtype], n, R, D,
+                                  stream)
+    if err:
+        raise RuntimeError(f"attn_merge kernel launch failed: cudaError "
+                           f"{err}")
+    attn_merge.launches += 1
+    return out
+
+
+attn_merge.launches = 0
 
 
 def check_kv_map(name: str, kv_map: Optional[torch.Tensor], H: int,

@@ -20,6 +20,13 @@ and converts them in registers; no dequantised copy of the cache is made
 on the card. The plain version dequantises first (``kv_dequant``, which
 the model's ``blocks._kv_load`` calls too), then calls the oracle.
 
+``partial=True`` is the mode of a rank of a sequence-sharded cache
+(``models.blocks``): K/V are the rank's slots and ``lengths`` the keys it
+holds of each sequence, and the call returns the rank's partial, the
+float32 output normalised over those keys, with its base-2 log-sum-exp
+(``-inf``, and an output of 0, for a row that sees none of them), for
+``attn_split.attn_merge`` to merge with the other ranks'.
+
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. ``decode_attention.launches`` counts wrapper calls that launched.
 """
@@ -28,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -38,7 +45,7 @@ from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_plain",
-           "decode_attention_cost", "kv_dequant"]
+           "decode_attention_cost", "kv_dequant", "partial_softmax"]
 
 TILE = 64               # keys a tile of the kernel; a chunk is a multiple
 #: K/V dtypes the kernel takes (q's, or int8), by their code in the C
@@ -61,19 +68,57 @@ def kv_dequant(x: torch.Tensor, kv_scale: float,
     return (x.float() * kv_scale).to(dtype)
 
 
+Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, *,
                            scale: Optional[float] = None,
                            kv_map: Optional[torch.Tensor] = None,
-                           kv_scale: Optional[float] = None) -> torch.Tensor:
+                           kv_scale: Optional[float] = None,
+                           partial: bool = False) -> Out:
     """The plain PyTorch version: int8 K/V dequantised to q's dtype
     (``kv_dequant``), K/V expanded through ``kv_map``, then the oracle of
-    ``ref.py``."""
+    ``ref.py`` (``_partial_plain`` with ``partial``)."""
     _check_kv_scale(k, kv_scale)
     if kv_scale is not None:
         k, v = (kv_dequant(x, kv_scale, q.dtype) for x in (k, v))
-    return decode_attention_ref(q, expand_kv(k, kv_map), expand_kv(v, kv_map),
-                                lengths, scale=scale)
+    k, v = expand_kv(k, kv_map), expand_kv(v, kv_map)
+    if partial:
+        return _partial_plain(q, k, v, lengths, scale)
+    return decode_attention_ref(q, k, v, lengths, scale=scale)
+
+
+def partial_softmax(s: torch.Tensor, mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A partial's softmax over the keys one holds: scores ``s`` [..., S]
+    (float32, natural base) where ``mask``, normalised over those keys, and
+    their base-2 log-sum-exp; weights of 0 and ``-inf`` on a row that sees
+    none. The weights times the values are the partial's output."""
+    s = torch.where(mask, s, -math.inf)
+    m = s.amax(-1)
+    m = torch.where(torch.isinf(m), 0.0, m)                  # empty rows
+    p = torch.exp(s - m[..., None])
+    den = p.sum(-1)
+    w = p / torch.where(den > 0, den, 1.0)[..., None]
+    lse = torch.where(den > 0, (m + torch.log(den)) / math.log(2.0),
+                      -math.inf)
+    return w, lse
+
+
+def _partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lengths: torch.Tensor, scale: Optional[float]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode over K/V of the H query heads: the float32 output
+    normalised over the first ``lengths[b]`` keys and the base-2
+    log-sum-exp of the scaled scores; 0 and ``-inf`` on an empty row."""
+    S, D = k.shape[1], q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bhd,bshd->bhs", q.float() * scale, k.float())
+    mask = (torch.arange(S, device=q.device)[None]
+            < lengths.to(q.device)[:, None])[:, None]          # [B, 1, S]
+    w, lse = partial_softmax(s, mask)
+    return torch.einsum("bhs,bshd->bhd", w, v.float()), lse
 
 
 def decode_attention_cost(n_seqs: int, n_heads: int, head_dim: int,
@@ -103,7 +148,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                        L, L, L, L, L, L, L, L, F, F, I, I, I, I, P]
         fn.restype = ctypes.c_int
         lib.decode_attention_cap.argtypes = [I]
@@ -139,14 +184,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *,
                      scale: Optional[float] = None,
                      kv_map: Optional[torch.Tensor] = None,
-                     kv_scale: Optional[float] = None) -> torch.Tensor:
+                     kv_scale: Optional[float] = None,
+                     partial: bool = False) -> Out:
     """q: [B,H,D]; k/v: [B,S,Hk,D], the stored KV heads, in q's dtype or
     int8 codes worth ``code * kv_scale`` (``kv_scale`` is given for int8
     and only then); lengths: [B] valid cache slots; ``kv_map``: int32 [H]
-    on q's device, query head -> KV head (None: Hk == H)."""
+    on q's device, query head -> KV head (None: Hk == H). Returns [B,H,D]
+    in q's dtype, or with ``partial`` (o [B,H,D], lse [B,H]) in float32."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, scale=scale,
-                                      kv_map=kv_map, kv_scale=kv_scale)
+                                      kv_map=kv_map, kv_scale=kv_scale,
+                                      partial=partial)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     B, H, D = q.shape
@@ -169,9 +217,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_kv_map("decode_attention", kv_map, H, Hk, q.device)
     q, k, v = aligned(q), aligned(k), aligned(v)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, D), dtype=torch.float32 if partial else q.dtype,
+                      device=q.device)
+    lse_out = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+               if partial else None)
     if out.numel() == 0:
-        return out
+        return (out, lse_out) if partial else out
     chunk, n_split, n_hb = split_plan(B, H, Hk, S, cap=_cap(D),
                                       sms=sm_count(q.device))
     opart = lse = None
@@ -187,6 +238,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if kv_map is None else kv_map.data_ptr(), out.data_ptr(),
         None if opart is None else opart.data_ptr(),
         None if lse is None else lse.data_ptr(),
+        None if lse_out is None else lse_out.data_ptr(), int(partial),
         DTYPES[q.dtype], KV_DTYPES[k.dtype], B, S, H, Hk, D,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
@@ -197,7 +249,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
     decode_attention.launches += 1
-    return out
+    return (out, lse_out) if partial else out
 
 
 decode_attention.launches = 0

@@ -34,10 +34,13 @@ for decode; under expert parallelism the dispatch and combine over
 (``_moe_replicated``).
 
 Under tensor parallelism (``models.sharding``, a rank's shard of each
-parameter) attention runs the rank's block of the query heads with
-``wo`` row-parallel and the SwiGLU its block of ``d_ff``; MLA and
-cross-attention are built only where the model axis has one rank
-(``lm._refuse_tp``).
+parameter) attention and MLA run the rank's block of the query heads with
+``wo`` row-parallel and the SwiGLU its block of ``d_ff``; cross-attention
+is built only where the model axis has one rank (``lm._refuse_tp``). With
+``ShardCtx.kv_seq_shard`` a decode cache is sequence-sharded over the
+model axis (``_seq_write``, ``_seq_merge``): each rank holds every real KV
+head (MLA: the latent) over its block of slots, attends with every query
+head over them and merges its own heads' partials with the other ranks'.
 """
 from __future__ import annotations
 
@@ -51,11 +54,12 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from ..kernels.decode_attention import kv_dequant
+from ..kernels.attn_split import attn_merge
+from ..kernels.decode_attention import kv_dequant, partial_softmax
 from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
-from .sharding import (HEAD_PAD, ShardCtx, all_to_all, copy_to, exchange,
-                       gather_from, gather_partial, pad_to_multiple,
-                       reduce_from, scatter_to)
+from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_to_all, copy_to,
+                       exchange, gather_from, gather_partial, pad_to_multiple,
+                       reduce_from, scatter_to, slot_block)
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "cross_apply",
            "MLA", "mla_init", "mla_apply", "ffn_init", "ffn_apply", "MoE",
@@ -157,9 +161,13 @@ class Attention(nn.Module):
         """After the parameters took their shards (``Model``): the rank's
         query heads are a block of the padded heads, and its q->kv map the
         same block of the map, into its own block of KV heads where those
-        are split (MHA) or into every KV head where they are whole."""
+        are split (MHA) or into every KV head where they are whole. The
+        whole map stays as ``kv_map_all``: a sequence-sharded decode
+        attends with every query head."""
         split = getattr(self.wq.w, "shard", None)
         host = self.kv_map_host
+        self.kv_map_all = torch.tensor(host, dtype=torch.int32,
+                                       device=self.wq.w.device)
         if split is None and ctx.model_size > 1:
             raise ValueError(f"{ctx.model_size} ranks on the model axis do "
                              f"not divide the {self.wq.w.shape[1]} query "
@@ -218,7 +226,8 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     Under tensor parallelism (``p.tp``, ``Attention.localize``) the rank
     runs its block of the query heads over its KV heads (its block of an
     MHA model's, all of a GQA model's) and its cache holds those; ``wo`` is
-    row-parallel, its partial products summed over the model axis."""
+    row-parallel, its partial products summed over the model axis. With
+    ``kv_seq_shard`` decode runs ``_attn_decode_seq``."""
     B, T, _ = x.shape
     hd = AttnDims.of(cfg).hd
     n_q, n_kv = p.wq.w.shape[1] // hd, p.wk.w.shape[1] // hd   # the rank's
@@ -235,7 +244,11 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 
-    if mode == "decode":
+    if mode == "decode" and p.tp is not None and p.tp.seq_sharded:
+        assert cache is not None and T == 1
+        out = _attn_decode_seq(p, q, k, v, cache, pos, window)
+        new_cache = cache
+    elif mode == "decode":
         assert cache is not None and T == 1
         ck, cv = cache["k"], cache["v"]                      # [B,S,n_store,hd]
         S, n_store = ck.shape[1], ck.shape[2]
@@ -280,6 +293,86 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     return y, new_cache
 
 
+# ------------------------------------------ sequence-sharded decode caches
+def _seq_write(leaf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+               lo: int, S: int) -> None:
+    """Write row b's ``new[b]`` into the rank's block ``leaf`` [B, n, ...]
+    of an ``S``-slot cache at slot ``min(pos[b], S - 1)`` (a position past
+    the capacity clamped to the last slot, as without the sharding) where
+    that slot is the rank's (``[lo, lo + n)``); other rows keep theirs. No
+    host read: each row rewrites a slot of its block, with its old value
+    where the slot is not its."""
+    B, n = leaf.shape[0], leaf.shape[1]
+    slot = pos.clamp(max=S - 1) - lo
+    mine = ((slot >= 0) & (slot < n)).reshape(B, *([1] * (new.dim() - 1)))
+    rows = torch.arange(B, device=leaf.device)
+    slot = slot.clamp(0, n - 1)
+    leaf[rows, slot] = torch.where(mine, new, leaf[rows, slot])
+
+
+def _gather_heads(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The ranks' blocks of heads (dim 1 of ``t`` [B, h, ...]) joined over
+    the model axis, the bytes sent counted in ``ctx.stats.seq_bytes``."""
+    t = t.contiguous()
+    ctx.stats.seq_bytes += (t.numel() * t.element_size()
+                            * (ctx.model_size - 1))
+    return all_gather(t, ctx, ctx.model_axis, 1)
+
+
+def _seq_merge(o: torch.Tensor, lse: torch.Tensor, ctx: ShardCtx,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The rank's partials o [B, H, D] (float32) and lse [B, H] (base 2)
+    of every query head, exchanged over the model axis (one ``all_to_all``
+    of ``[o, lse]``: block j of the heads to rank j), and the rank's block
+    of H / m heads merged over the ranks' partials (``attn_merge``, the
+    combine kernel on the card) into [B, H / m, D] of ``dtype``."""
+    B, H, D = o.shape
+    m = ctx.model_size
+    send = torch.cat([o, lse[..., None]], -1).reshape(
+        B, m, H // m, D + 1).transpose(0, 1)                # [m, B, h, D+1]
+    ctx.stats.seq_bytes += _a2a_bytes(send, m)
+    recv = all_to_all(send, ctx, ctx.model_axis)
+    R = B * (H // m)
+    out = attn_merge(recv[..., :D].reshape(m, R, D),
+                     recv[..., D].reshape(m, R), dtype)
+    return out.reshape(B, H // m, D)
+
+
+def _attn_decode_seq(p: Attention, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     pos: torch.Tensor, window: int) -> torch.Tensor:
+    """Decode over a sequence-sharded cache (``ShardCtx.kv_seq_shard``):
+    the rank holds every real KV head over its block of slots
+    (``slot_block``). The new token's K/V of every real KV head (an MHA
+    model's ranks gather their blocks of heads, in the one gather of q) go
+    to the rank that owns the slot; the rank gathers q of every padded
+    query head, runs the decode kernel's partial mode over its slots
+    through the whole q->kv map (``kv_map_all``) and merges its own heads'
+    partials with the other ranks' (``_seq_merge``). Returns [B, 1, h, hd]
+    for the rank's h query heads, in q's dtype."""
+    ctx = p.tp
+    if window:
+        raise ValueError("a windowed ring under a sequence-sharded cache is "
+                         "not ported (its model's TP is ROADMAP queue 1 #8)")
+    ck, cv = cache["k"], cache["v"]                    # [B, S/m, n_store, hd]
+    n_store = ck.shape[2]
+    S = ck.shape[1] * ctx.model_size
+    lo, n = slot_block(ctx, S)
+    hd = q.shape[-1]
+    if getattr(p.wk.w, "shard", None) is not None:    # MHA: blocks of heads
+        q1, k1, v1 = _gather_heads(torch.cat([q[:, 0], k[:, 0], v[:, 0]], -1),
+                                   ctx).split(hd, -1)
+    else:
+        q1, k1, v1 = _gather_heads(q[:, 0], ctx), k[:, 0], v[:, 0]
+    _seq_write(ck, _kv_store(k1[:, :n_store], ck.dtype), pos, lo, S)
+    _seq_write(cv, _kv_store(v1[:, :n_store], cv.dtype), pos, lo, S)
+    lengths = ((pos + 1).clamp(max=S) - lo).clamp(0, n)
+    kv_scale = 1.0 / _KV_QSCALE if ck.dtype == torch.int8 else None
+    o, lse = kops.decode_attention(q1, ck, cv, lengths, kv_map=p.kv_map_all,
+                                   kv_scale=kv_scale, partial=True)
+    return _seq_merge(o, lse, ctx, q.dtype)[:, None]
+
+
 def cross_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig,
                 mode: str, memory: Optional[torch.Tensor] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None
@@ -321,7 +414,12 @@ class MLA(nn.Module):
     ``q_norm``, ``wq_b``: ``nope_head_dim + rope_head_dim`` a head), the
     latent ``c`` and the one shared rope key from ``wkv_a`` (``kv_norm`` on
     the latent), and the up-projections ``wk_b``, ``wv_b`` that absorbed
-    attention folds into the query and the output."""
+    attention folds into the query and the output.
+
+    Under tensor parallelism (``localize``) ``wq_b``, ``wk_b`` and ``wv_b``
+    hold the rank's block of the heads and ``wo`` its rows; ``wq_a``,
+    ``q_norm``, ``wkv_a`` and ``kv_norm`` stay whole (JAX's ``_REPL``), and
+    the latent cache is every rank's."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
         super().__init__()
@@ -337,11 +435,20 @@ class MLA(nn.Module):
         self.wk_b = Dense(r, H * dn, **kw)
         self.wv_b = Dense(r, H * dv, **kw)
         self.wo = Dense(H * dv, d, **kw)
+        self.tp: Optional[ShardCtx] = None     # set by localize under TP
 
     def init(self, generator: torch.Generator) -> None:
         for m in (self.wq_a, self.q_norm, self.wq_b, self.wkv_a,
                   self.kv_norm, self.wk_b, self.wv_b, self.wo):
             m.init(generator)
+
+    def localize(self, ctx: ShardCtx) -> None:
+        """After the parameters took their shards (``Model``): the rank
+        runs its block of the heads where they are split (``lm._refuse_tp``
+        has checked that the model axis divides them: JAX pads no MLA
+        head)."""
+        if getattr(self.wk_b.w, "shard", None) is not None:
+            self.tp = ctx
 
 
 def mla_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> MLA:
@@ -364,11 +471,17 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     and key in place at its own position ``pos[b]`` (clamped to the last
     slot, as JAX's ``dynamic_update_slice``) and masks its keys past
     ``pos[b]``; JAX decodes one sequence at a time with a scalar position.
-    No Pallas kernel computes MLA: these are plain products."""
+    No Pallas kernel computes MLA: these are plain products.
+
+    Under tensor parallelism (``p.tp``) the rank runs its block of the
+    heads and ``wo``'s partial products are summed over the model axis;
+    with ``kv_seq_shard`` decode runs ``_mla_decode_seq``."""
     B, T, _ = x.shape
-    H = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
+    H = p.wk_b.w.shape[1] // dn                         # the rank's heads
+    if p.tp is not None:
+        x = copy_to(x, p.tp, p.tp.model_axis)
     q = p.wq_b(p.q_norm(p.wq_a(x))).reshape(B, T, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     kv = p.wkv_a(x)                                       # [B, T, r + dr]
@@ -382,16 +495,18 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope[:, :, None], sin, cos)[:, :, 0]
 
+    seq = mode == "decode" and p.tp is not None and p.tp.seq_sharded
     if mode == "decode":
         assert cache is not None and T == 1
         c_all, kr_all = cache["c"], cache["kr"]
-        S = c_all.shape[1]
-        rows = torch.arange(B, device=x.device)
-        slot = pos.clamp(max=S - 1)
-        c_all[rows, slot] = c_kv[:, 0].to(c_all.dtype)
-        kr_all[rows, slot] = k_rope[:, 0].to(kr_all.dtype)
-        k_pos = torch.arange(S, device=x.device)
-        mask = k_pos[None, None, :] <= pos[:, None, None]          # [B,1,S]
+        if not seq:                    # (else written by _mla_decode_seq)
+            S = c_all.shape[1]
+            rows = torch.arange(B, device=x.device)
+            slot = pos.clamp(max=S - 1)
+            c_all[rows, slot] = c_kv[:, 0].to(c_all.dtype)
+            kr_all[rows, slot] = k_rope[:, 0].to(kr_all.dtype)
+            k_pos = torch.arange(S, device=x.device)
+            mask = k_pos[None, None, :] <= pos[:, None, None]      # [B,1,S]
     elif cache is not None:
         Pk = cache["c"].shape[1]
         c_all = torch.cat([cache["c"], c_kv], 1)
@@ -405,18 +520,55 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
 
     wk = p.wk_b.w.reshape(r, H, dn).float()
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), wk)  # [B,T,H,r]
-    c32 = c_all.float()
-    logits = (torch.einsum("bthr,bsr->bhts", q_lat, c32)
-              + torch.einsum("bthr,bsr->bhts", q_rope.float(),
-                             kr_all.float())) / math.sqrt(dn + dr)
-    logits = torch.where(mask[:, None], logits,
-                         torch.full_like(logits, -1e30))
-    w = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bhts,bsr->bthr", w, c32)
+    if seq:
+        ctx = _mla_decode_seq(p.tp, q_lat, q_rope, c_kv, k_rope, cache, pos,
+                              dn + dr)
+    else:
+        c32 = c_all.float()
+        logits = (torch.einsum("bthr,bsr->bhts", q_lat, c32)
+                  + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                                 kr_all.float())) / math.sqrt(dn + dr)
+        logits = torch.where(mask[:, None], logits,
+                             torch.full_like(logits, -1e30))
+        w = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhts,bsr->bthr", w, c32)
     out = torch.einsum("bthr,rhv->bthv", ctx,
                        p.wv_b.w.reshape(r, H, dv).float())
-    return (p.wo(out.to(x.dtype).reshape(B, T, H * dv)),
-            None if mode == "train" else new_cache)
+    y = p.wo(out.to(x.dtype).reshape(B, T, H * dv))
+    if p.tp is not None:
+        y = reduce_from(y, p.tp, p.tp.model_axis)
+    return y, None if mode == "train" else new_cache
+
+
+def _mla_decode_seq(ctx: ShardCtx, q_lat: torch.Tensor, q_rope: torch.Tensor,
+                    c_kv: torch.Tensor, k_rope: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                    qk_dim: int) -> torch.Tensor:
+    """MLA decode over a sequence-sharded latent cache (JAX's
+    ``("batch", "model", None)`` layout): the rank holds ``c``/``kr`` over
+    its block of slots and writes the new latent and key where the slot
+    ``min(pos[b], S - 1)`` is its (``_seq_write``); it gathers ``q_lat``
+    and ``q_rope`` of every head, scores its slots in float32 (a key at
+    position ``k`` seen where ``k <= pos[b]``), keeps each head's latent
+    accumulator normalised over its slots with the base-2 log-sum-exp
+    (``partial_softmax``), and merges its own heads' over the ranks
+    (``_seq_merge``, float32). Returns the rank's heads' attention output
+    in the latent, [B, 1, h, r] float32; the products are plain."""
+    c_all, kr_all = cache["c"], cache["kr"]                 # [B, S/m, .]
+    S = c_all.shape[1] * ctx.model_size
+    lo, n = slot_block(ctx, S)
+    _seq_write(c_all, c_kv[:, 0].to(c_all.dtype), pos, lo, S)
+    _seq_write(kr_all, k_rope[:, 0].to(kr_all.dtype), pos, lo, S)
+    ql, qr = _gather_heads(torch.cat([q_lat[:, 0], q_rope[:, 0].float()], -1),
+                           ctx).split([q_lat.shape[-1], q_rope.shape[-1]], -1)
+    c32 = c_all.float()
+    s = (torch.einsum("bhr,bsr->bhs", ql, c32)
+         + torch.einsum("bhr,bsr->bhs", qr, kr_all.float())
+         ) / math.sqrt(qk_dim)
+    k_pos = lo + torch.arange(n, device=c_all.device)
+    w, lse = partial_softmax(s, k_pos[None, None, :] <= pos[:, None, None])
+    o = torch.einsum("bhs,bsr->bhr", w, c32)
+    return _seq_merge(o, lse, ctx, torch.float32)[:, None]
 
 
 # ---------------------------------------------------------------- dense FFN

@@ -26,7 +26,8 @@ Parameters are built with ``requires_grad=False`` and serving runs under
 
 ``build_model(cfg, ctx=ShardCtx(mesh=...))`` builds a rank's shard of the
 model (see ``Model``): the batch a call takes is the rank's rows, its
-caches the rank's heads, its logits the whole vocab's.
+caches the rank's heads (with ``kv_seq_shard``, a decode cache every real
+KV head over the rank's block of slots), its logits the whole vocab's.
 
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
 then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
@@ -55,12 +56,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .blocks import (Attention, AttnDims, attn_apply, attn_init, cross_apply,
-                     ffn_apply, ffn_init, mla_apply, mla_init, moe_apply,
-                     moe_init, rglru_apply, rglru_init, ssd_apply, ssd_init)
+from .blocks import (MLA, Attention, AttnDims, attn_apply, attn_init,
+                     cross_apply, ffn_apply, ffn_init, mla_apply, mla_init,
+                     moe_apply, moe_init, rglru_apply, rglru_init, ssd_apply,
+                     ssd_init)
 from .layers import Dense, RMSNorm, normal_, softmax_xent, xent_terms
 from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_reduce, copy_to,
-                       pad_to_multiple, reduce_from)
+                       pad_to_multiple, reduce_from, slot_block)
 
 __all__ = ["Model", "build_model", "Segment", "plan_segments"]
 
@@ -213,8 +215,8 @@ class Model(nn.Module):
     where the embedding is (vocab-parallel lookup and cross-entropy;
     ``prefill`` and ``decode_step`` gather the logits), the batch the rank's
     rows, the loss the mean over the whole batch of every data rank. SSM,
-    hybrid, encoder-decoder and MLA models run data parallel only (one rank
-    on "model")."""
+    hybrid and encoder-decoder models run data parallel only (one rank on
+    "model")."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
                  device=None, remat: bool = False,
@@ -262,7 +264,8 @@ class Model(nn.Module):
     def _localize(self, device) -> None:
         """Replace each (meta) parameter by the rank's shard on ``device``,
         its ``Split`` as the parameter's ``shard``; each attention layer
-        takes its heads' block of the q->kv map."""
+        takes its heads' block of the q->kv map, each MLA layer its block
+        of the heads."""
         from ..launch.shardings import param_placement   # launch imports us
         for name, p in list(self.named_parameters()):
             split = param_placement(name, tuple(p.shape), self.cfg, self.ctx)
@@ -279,6 +282,8 @@ class Model(nn.Module):
                 m.localize(self.ctx)
                 if getattr(m.wk.w, "shard", None) is not None:
                     self.kv_heads = m.wk.w.shape[1] // self.cfg.hd
+            elif isinstance(m, MLA):
+                m.localize(self.ctx)
 
     @property
     def vocab_padded(self) -> int:
@@ -546,7 +551,13 @@ class Model(nn.Module):
         cross K/V: the JAX model stores those leaves in ``kv_dtype`` too and
         reads the int8 codes as values (its SSD and RG-LRU blocks concatenate
         the conv window with new values unscaled, its MLA attends over the
-        latent codes, its cross-attention over the K/V codes)."""
+        latent codes, its cross-attention over the K/V codes).
+
+        With ``kv_seq_shard`` over more than one rank, the token leaves
+        (``k``, ``v``, ``c``, ``kr``) are the rank's block of the
+        ``max_len`` slots (``sharding.slot_block``; the ranks must divide
+        it) and attention's hold every real KV head; state leaves stay
+        whole (JAX's ``cache_pspec``)."""
         kv_dtype = kv_dtype or self.dtype
         if kv_dtype == torch.int8:
             bad = sorted({kind for seg in self.segments
@@ -565,6 +576,9 @@ class Model(nn.Module):
                        kv_dtype: torch.dtype, src_len: int):
         cfg = self.cfg
         dims = AttnDims.of(cfg)
+        kv_heads, slots = self.kv_heads, max_len
+        if self.ctx.seq_sharded:
+            kv_heads, slots = cfg.n_kv, slot_block(self.ctx, max_len)[1]
 
         def zeros(shape, dtype=self.dtype):
             return torch.zeros((seg.count, batch_size) + shape, dtype=dtype,
@@ -583,11 +597,11 @@ class Model(nn.Module):
                                  "state": zeros((w,), torch.float32)}}
             elif kind == "mla":
                 entry = {"mix": {
-                    "c": zeros((max_len, cfg.kv_lora_rank), kv_dtype),
-                    "kr": zeros((max_len, cfg.rope_head_dim), kv_dtype)}}
+                    "c": zeros((slots, cfg.kv_lora_rank), kv_dtype),
+                    "kr": zeros((slots, cfg.rope_head_dim), kv_dtype)}}
             else:
-                S = min(max_len, window) if window else max_len
-                entry = {"mix": {n: zeros((S, self.kv_heads, dims.hd),
+                S = min(max_len, window) if window else slots
+                entry = {"mix": {n: zeros((S, kv_heads, dims.hd),
                                           kv_dtype) for n in ("k", "v")}}
             if cfg.enc_layers and src_len:
                 for n in ("xk", "xv"):
@@ -598,8 +612,9 @@ class Model(nn.Module):
 
 
 def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
-    """Tensor parallelism covers the dense and MoE families; the others
-    raise rather than run replicated."""
+    """Tensor parallelism covers the dense and MoE families (MLA among
+    them, where the model axis divides its heads); the others raise rather
+    than run replicated."""
     m = ctx.model_size
     if m == 1:
         return
@@ -607,10 +622,13 @@ def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
         raise NotImplementedError(
             f"a model axis of {m} > {ctx.head_pad} ranks is not ported "
             "(ROADMAP queue 1 #8)")
+    if cfg.use_mla and cfg.n_heads % m:
+        raise ValueError(f"{cfg.name}: {m} ranks on the model axis do not "
+                         f"divide MLA's {cfg.n_heads} heads (JAX pads no "
+                         "MLA head)")
     for what, bad in (("an SSM mixer", cfg.family == "ssm"),
                       ("an RG-LRU block", bool(cfg.block_pattern)),
-                      ("an encoder-decoder", cfg.enc_layers > 0),
-                      ("MLA attention", cfg.use_mla)):
+                      ("an encoder-decoder", cfg.enc_layers > 0)):
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism of {what} is the next "

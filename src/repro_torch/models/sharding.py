@@ -8,6 +8,9 @@ Mesh axes are ``("data", "model")`` (``launch.mesh.make_mesh_for``):
     the vocab             -> "model"  (tensor parallelism, TP)
   * the expert bank       -> ``ep_axes``: ("model",) or ("data", "model")
                              (expert parallelism, EP)
+  * decode cache slots    -> "model" with ``kv_seq_shard`` (the JAX
+                             package's flash-decoding layout: a rank holds
+                             a block of every sequence's slots)
 
 Query heads and the vocab pad to a multiple of ``HEAD_PAD`` (16) whatever
 the mesh (``ShardCtx.head_multiple``; wider than 16 the multiple grows), so
@@ -42,7 +45,7 @@ __all__ = ["HEAD_PAD", "pad_to_multiple", "Split", "ShardCtx", "EPStats",
            "shard_tensor", "all_reduce", "all_gather", "gather_to_first",
            "all_to_all",
            "copy_to", "reduce_from", "gather_from", "scatter_to",
-           "gather_partial", "exchange"]
+           "gather_partial", "exchange", "slot_block"]
 
 HEAD_PAD = 16
 
@@ -77,16 +80,20 @@ class EPStats:
     zeroed: the (token, expert) pairs dropped past the capacity (a 0-dim
     device tensor, summed without a host read), the ``all_to_all`` calls
     and the bytes a rank sent to the others through them, and the branch
-    each call took."""
+    each call took; and the bytes a rank sent in the sequence-sharded
+    decode's exchanges (its queries gathered, its partials sent),
+    ``seq_bytes``."""
     dropped: Any = 0
     pairs: int = 0
     a2a_calls: int = 0
     a2a_bytes: int = 0
     branches: dict = field(default_factory=dict)
+    seq_bytes: int = 0
 
     def zero(self) -> None:
         self.dropped, self.pairs, self.a2a_calls, self.a2a_bytes = 0, 0, 0, 0
         self.branches = {}
+        self.seq_bytes = 0
 
 
 @dataclass
@@ -99,7 +106,15 @@ class ShardCtx:
     the expert-parallel axes: ("model",) is classic EP within TP,
     ("data", "model") spreads the experts over every rank.
 
-    ``zero3`` and ``kv_seq_shard`` are not ported: setting either raises.
+    ``kv_seq_shard``: decode caches are sequence-sharded over the model
+    axis (the JAX package's decode layout, ``launch.specs.make_ctx``): a
+    rank holds every real KV head (or MLA latent) over its block of slots
+    (``slot_block``), runs the decode kernel over them and merges its query
+    heads' partials with the other ranks' (``blocks.attn_apply``,
+    ``blocks.mla_apply``). Prefill and training are as without it; at a
+    model axis of one rank it changes nothing.
+
+    ``zero3`` is not ported: setting it raises.
     """
 
     mesh: Optional[Any] = None
@@ -114,11 +129,14 @@ class ShardCtx:
     stats: EPStats = field(default_factory=EPStats)
 
     def __post_init__(self):
-        for flag in ("zero3", "kv_seq_shard"):
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"ShardCtx({flag}=True) is not ported yet (ROADMAP "
-                    "queue 1 #8)")
+        if self.zero3:
+            raise NotImplementedError(
+                "ShardCtx(zero3=True) is not ported yet (ROADMAP queue 1 #8)")
+
+    @property
+    def seq_sharded(self) -> bool:
+        """Decode caches are split by slots over more than one rank."""
+        return self.kv_seq_shard and self.model_size > 1
 
     # ------------------------------------------------------------ sizes
     def size(self, axes: Union[str, Sequence[str]]) -> int:
@@ -166,6 +184,22 @@ class ShardCtx:
         if parts == 1 or n % parts:
             return None
         return Split(dim, axes, self.index(axes), parts)
+
+
+def slot_block(ctx: Optional[ShardCtx], S: int) -> Tuple[int, int]:
+    """The rank's block ``[lo, lo + n)`` of a sequence-sharded decode
+    cache's ``S`` slots over the model axis, as ``(lo, n)``: ``(0, S)``
+    unless ``ctx.kv_seq_shard`` with more than one rank there. Raises
+    unless the ranks divide ``S`` (the JAX layout's sharding needs that
+    too)."""
+    if ctx is None or not ctx.seq_sharded:
+        return 0, S
+    m = ctx.model_size
+    if S % m:
+        raise ValueError(f"a sequence-sharded cache of {S} slots over {m} "
+                         "ranks: the ranks must divide the slots")
+    n = S // m
+    return ctx.index(ctx.model_axis) * n, n
 
 
 # ------------------------------------------------------------- collectives

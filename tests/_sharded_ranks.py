@@ -10,17 +10,28 @@ import torch.distributed as dist
 
 from repro_torch.configs import SMOKES
 from repro_torch.launch.mesh import make_mesh_for
-from repro_torch.launch.shardings import (gather_state, grad_sum_axes,
-                                          model_splits, shard_batch)
+from repro_torch.launch.shardings import (gather_cache, gather_state,
+                                          grad_sum_axes, join_kv_heads,
+                                          model_splits, shard_batch,
+                                          shard_cache)
 from repro_torch.models import blocks, build_model, from_jax_params
 from repro_torch.models.sharding import ShardCtx, all_gather
 from repro_torch.training.trainer import sync_grads
 
 
-def _ctx(model_par, ep_axes=("model",)):
+def fake_mesh(data, model):
+    """Enough of a mesh for a one-process test where no collective runs:
+    every axis it uses has one rank, or the test ends before one."""
+    import types
+    return types.SimpleNamespace(shape={"data": data, "model": model},
+                                 names=("data", "model"),
+                                 coord=lambda axis: 0, backend="gloo")
+
+
+def _ctx(model_par, ep_axes=("model",), kv_seq_shard=False):
     torch.set_num_threads(1)
     return ShardCtx(mesh=make_mesh_for(dist.get_world_size(), model_par),
-                    ep_axes=tuple(ep_axes))
+                    ep_axes=tuple(ep_axes), kv_seq_shard=kv_seq_shard)
 
 
 def _model(arch, params, ctx, dtype=torch.float32, changes=None):
@@ -52,20 +63,87 @@ def logical_caches(caches, model, split_rows):
 
 
 def serve_and_grads(rank, dev, model_par, jobs, steps):
-    """``_serve_and_grads`` of each (arch, JAX params, tokens) of
-    ``jobs`` on one mesh."""
+    """``_serve_and_grads`` of each (arch, JAX params, tokens[, labels2])
+    of ``jobs`` on one mesh."""
     ctx = _ctx(model_par)
-    out = [_serve_and_grads(ctx, arch, params, tokens, steps)
-           for arch, params, tokens in jobs]
+    out = [_serve_and_grads(ctx, arch, params, tokens, steps, *rest)
+           for arch, params, tokens, *rest in jobs]
     return out if rank == 0 else None
 
 
-def _serve_and_grads(ctx, arch, params, tokens, steps):
+def seq_decode(rank, dev, model_par, jobs, steps):
+    """``_seq_decode`` of each (arch, JAX params, prompts, slots, dtype,
+    KV dtype, config changes) of ``jobs`` on one mesh with
+    ``kv_seq_shard``."""
+    ctx = _ctx(model_par, kv_seq_shard=True)
+    out = [_seq_decode(ctx, *job, steps) for job in jobs]
+    return out if rank == 0 else None
+
+
+def _seq_decode(ctx, arch, params, prompts, S, dtype, kv_dtype, changes,
+                steps):
+    """Each of the rank's rows of ``prompts`` (a list of token arrays of
+    their own lengths, split over "data" where it divides them) prefilled
+    alone, its caches given every real KV head (``join_kv_heads``), grown
+    to ``S`` slots (int8 codes with ``kv_dtype`` "int8") and joined into
+    one logical decode cache, which ``shard_cache`` cuts into the rank's
+    slots; then ``steps`` greedy decode steps at each row's own position.
+    Returns each call's logits, the greedy tokens and the logical cache
+    after the last step (``gather_cache``), over every row, and the bytes
+    a rank sent in the sequence-sharded exchanges a step."""
+    model = _model(arch, params, ctx, getattr(torch, dtype), changes)
+    B = len(prompts)
+    split = ctx.split(0, ctx.batch_axes, B)
+    mine = range(B)
+    if split is not None:
+        n = B // split.parts
+        mine = range(split.index * n, (split.index + 1) * n)
+    logical, firsts = [], []
+    for b in mine:
+        lg, c = model.prefill({"tokens": torch.from_numpy(prompts[b])[None]})
+        firsts.append(lg)
+        logical.append(join_kv_heads(c, model))
+
+    def grown(t):
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3)
+                                    + (0, S - t.shape[2]))
+        return blocks._kv_store(t, torch.int8) if kv_dtype == "int8" else t
+    logical = [[{"mix": {n: torch.cat([grown(r[si][i]["mix"][n])
+                                       for r in logical], 1)
+                         for n in entry["mix"]}}
+                for i, entry in enumerate(seg)]
+               for si, seg in enumerate(logical[0])]
+    caches = shard_cache(logical, ctx)
+    pos = torch.tensor([len(prompts[b]) for b in mine])
+    logits = [torch.cat(firsts, 0)]
+    tok = logits[0][:, 0].argmax(-1, keepdim=True)
+    greedy = [tok]
+    ctx.stats.zero()
+    for s in range(steps):
+        lg, caches = model.decode_step(caches, tok, pos + s)
+        logits.append(lg)
+        tok = lg[:, 0].argmax(-1, keepdim=True)
+        greedy.append(tok)
+    seq_bytes = ctx.stats.seq_bytes // max(1, steps)
+    whole = gather_cache(caches, ctx)
+    rows = split is not None
+    return {"logits": [_rows(x, ctx, rows).float().numpy() for x in logits],
+            "greedy": _rows(torch.cat(greedy, 1), ctx, rows).numpy(),
+            "caches": [[{"mix": {n: (all_gather(t, ctx, ctx.batch_axes, 1)
+                                     if rows else t).float().numpy()
+                                 for n, t in e["mix"].items()}}
+                        for e in seg] for seg in whole],
+            "seq_bytes": seq_bytes,
+            "local_slots": caches[0][0]["mix"][
+                "c" if "c" in caches[0][0]["mix"] else "k"].shape[2]}
+
+
+def _serve_and_grads(ctx, arch, params, tokens, steps, labels2=None):
     """Prefill ``tokens`` [B, T] (the rank's rows), ``steps`` greedy decode
     steps over the prefill's caches grown by ``steps`` slots, then the loss
-    and every gradient of ``tokens`` as its own labels. Returns the
-    logical prefill logits, caches, greedy tokens, loss, gradients and the
-    EP counters."""
+    and every gradient of ``tokens`` as its own labels (and ``labels2``,
+    the MTP term's, where given). Returns the logical prefill logits,
+    caches, greedy tokens, loss, gradients and the EP counters."""
     ctx.stats.zero()
     model = _model(arch, params, ctx)
     toks = torch.from_numpy(tokens)
@@ -76,8 +154,8 @@ def _serve_and_grads(ctx, arch, params, tokens, steps):
            "caches": logical_caches(caches, model, split)}
     T = local.shape[1]
     caches = [[{"mix": {k: torch.nn.functional.pad(
-        v, (0, 0, 0, 0, 0, steps)) for k, v in lay["mix"].items()}}
-        for lay in seg] for seg in caches]
+        v, (0, 0) * (v.dim() - 3) + (0, steps))
+        for k, v in lay["mix"].items()}} for lay in seg] for seg in caches]
     tok = logits[:, 0].argmax(-1, keepdim=True)
     greedy = [tok]
     for s in range(steps):
@@ -86,7 +164,10 @@ def _serve_and_grads(ctx, arch, params, tokens, steps):
         greedy.append(tok)
     out["greedy"] = _rows(torch.cat(greedy, 1), ctx, split).numpy()
     model.requires_grad_(True)
-    batch = shard_batch({"tokens": toks, "labels": toks}, ctx)
+    batch = {"tokens": toks, "labels": toks}
+    if labels2 is not None:
+        batch["labels2"] = torch.from_numpy(labels2)
+    batch = shard_batch(batch, ctx)
     loss = model.loss(batch)
     loss.backward()
     shards = model_splits(model)

@@ -1093,3 +1093,100 @@ def test_smoke_train_step_matches_cpu_on_card():
         assert float(torch.where(ill, d, 0.0).max()) <= 1.01 * opt.lr, n
         assert float(torch.where(ill, 0.0, d).max()) <= 1e-4 * float(
             want.detach().abs().max()) + 1e-7, n
+
+
+# ------------------------------------------- the sequence-sharded decode
+#: float32 partials on both sides: the kernel's exp2/log2 approximations
+#: and its summation order, ~1e-6 relative (chip_smoke.py's LSE_TOL)
+PARTIAL_TOL = 1e-4
+
+
+def _partial_inputs(dev, g, S, D, kv_dtype, tdt):
+    """B = 8 over smollm's 16 -> 5 map at head dim ``D``; K/V in q's dtype
+    or int8 codes; lengths 0, 1, S and ragged ones (row 0 sees no key)."""
+    Hk, kv_map = _map(dev, "gqa16to5")
+    q = torch.randn(8, 16, D, generator=g, device=dev).to(tdt)
+    k, v, kv_scale = _dense_kv(dev, g, 8, S, Hk, D, kv_dtype, tdt)
+    lengths = torch.tensor([0, 1, S, S - 24, 17, 65, S // 2, S - 1],
+                           dtype=torch.int32, device=dev)
+    return q, k, v, lengths, dict(kv_map=kv_map, kv_scale=kv_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [40, 1024])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("kv_dtype", ["int8", "same"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_partial_mode_on_card(S, D, kv_dtype, dtype):
+    """The partial mode (a rank's share of a sequence-sharded cache)
+    against its plain version: the float32 output normalised over the
+    keys and the base-2 log-sum-exp, -inf and 0 on the empty row; S = 40
+    runs one chunk (the block writes the partial), S = 1024 several (the
+    combine merges them); two calls bitwise equal."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    q, k, v, lengths, kw = _partial_inputs(dev, g, S, D, kv_dtype,
+                                           DTYPES[dtype])
+    o, lse = decode_attention(q, k, v, lengths, partial=True, **kw)
+    o2, lse2 = decode_attention(q, k, v, lengths, partial=True, **kw)
+    po, plse = decode_attention_plain(q, k, v, lengths, partial=True, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == lse.dtype == torch.float32 and lse.shape == (8, 16)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.all(o[0] == 0) and torch.all(torch.isneginf(lse[0]))
+    torch.testing.assert_close(o, po, atol=PARTIAL_TOL, rtol=PARTIAL_TOL)
+    torch.testing.assert_close(lse, plse, atol=PARTIAL_TOL, rtol=PARTIAL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 512])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_merge_matches_plain_on_card(D, m, dtype):
+    """The ranks' merge (``attn_merge``, the combine kernel launched on its
+    own) against ``merge_partials``: m ranks' float32 partials of 1024
+    rows at D = 64, 128 and MLA's 512, some ranks empty for a row and one
+    row empty on every rank (0); two calls bitwise equal."""
+    from repro_torch.kernels.attn_split import attn_merge, merge_partials
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(D + m)
+    R = 1024
+    o = torch.randn(m, R, D, generator=g, device=dev)
+    lse = torch.randn(m, R, generator=g, device=dev) * 4
+    lse[0, ::3] = -float("inf")
+    lse[:, 5] = -float("inf")
+    o[:, 5] = 0
+    got = attn_merge(o, lse, DTYPES[dtype])
+    again = attn_merge(o, lse, DTYPES[dtype])
+    want = merge_partials(o, lse)
+    torch.cuda.synchronize()
+    assert got.dtype == DTYPES[dtype] and torch.equal(got, again)
+    assert torch.all(got[5] == 0)
+    torch.testing.assert_close(got.float(), want, atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("kv_dtype", ["int8", "same"])
+def test_partials_over_slices_merged_match_whole_on_card(m, kv_dtype):
+    """A 1024-slot cache cut into m ranks' slots: each slice's partial
+    (lengths clamped to the slice), merged by ``attn_merge`` into bf16,
+    against the decode kernel over the whole cache."""
+    from repro_torch.kernels.attn_split import attn_merge
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m)
+    S, n = 1024, 1024 // m
+    q, k, v, lengths, kw = _partial_inputs(dev, g, S, 64, kv_dtype,
+                                           torch.bfloat16)
+    parts = [decode_attention(q, k[:, r * n:(r + 1) * n],
+                              v[:, r * n:(r + 1) * n],
+                              (lengths - r * n).clamp(0, n), partial=True,
+                              **kw) for r in range(m)]
+    got = attn_merge(torch.stack([p[0].reshape(-1, 64) for p in parts]),
+                     torch.stack([p[1].reshape(-1) for p in parts]),
+                     torch.bfloat16).reshape(8, 16, 64)
+    want = decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)

@@ -14,7 +14,6 @@ Tolerances as tests/test_torch_train.py's: 2e-5 of each leaf's largest
 value; a parameter also moves by what that tolerance in its gradient can
 move Adam's steps (``_state_close``)."""
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -239,23 +238,17 @@ def test_run_with_model_par_2_trains_and_resumes(world2):
     assert shapes["seg0.0.0.mix.wk.w"] == (cfg.d_model, cfg.n_kv * cfg.hd)
 
 
-def _fake_mesh(data, model):
-    """Enough of a mesh for a refusal that comes before any collective."""
-    return types.SimpleNamespace(shape={"data": data, "model": model},
-                                 coord=lambda axis: 0, backend="gloo")
-
-
-@pytest.mark.parametrize("flag", ["zero3", "kv_seq_shard"])
+@pytest.mark.parametrize("flag", ["zero3"])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="queue 1 #8"):
         ShardCtx(**{flag: True})
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
-                                  "deepseek-v3-671b", "seamless-m4t-medium"])
+                                  "seamless-m4t-medium"])
 def test_tensor_parallel_of_uncovered_families_raises(arch):
-    """SSM, hybrid, MLA and encoder-decoder models refuse a model axis of
-    more than one rank (they run data parallel)."""
+    """SSM, hybrid and encoder-decoder models refuse a model axis of more
+    than one rank (they run data parallel)."""
     with pytest.raises(NotImplementedError, match="next slice"):
         build_model(SMOKES[arch], device="cpu",
-                    ctx=ShardCtx(mesh=_fake_mesh(1, 2)))
+                    ctx=ShardCtx(mesh=ranks.fake_mesh(1, 2)))
