@@ -89,11 +89,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
      starcoder2-3b (30 layers, 32 query heads over 2 KV heads, head dim
      128) through the same launcher, B=2 x 1024: 3 steps with finite
      losses and 30 launches of each attention kernel a step, then a warm
-     step timed and one profiled; 5m: full-width full-depth mamba2-1.3b
-     through ``run`` (B=4 x 1024): 3 steps with a checkpoint at 2, the
-     launcher's loop resumed from it and held bitwise to the straight run,
-     48 launches of each SSD kernel a step, a warm step timed and one
-     profiled (the shares of the SSD forward and backward); 5r:
+     step timed and one profiled; 5m: full-width mamba2-1.3b cut to depth
+     24 through the launcher's loop (B=4 x 1024): 3 steps with a
+     checkpoint at 2, the loop resumed from it and held bitwise to the
+     straight run, 24 launches of each SSD kernel a step, a warm step
+     timed and one profiled (the shares of the SSD forward and backward); 5r:
      recurrentgemma-9b at full width cut to depth 6 (B=1 x 2112, past the
      window): 3 steps, the launches of both RG-LRU and both attention
      kernels, a warm step timed and one profiled;
@@ -110,13 +110,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
      of no mesh; 6a: full-width full-depth smollm-360m at (1, 2) and
      (2, 2), float32 logits within 1e-3 of one rank's and 8 greedy tokens
      equal, at (2, 2) the loss and every logical gradient at 4t's depth
-     and batch, bf16 training at B=8 x 1024 (3 steps, a checkpoint at 2,
+     and batch, bf16 training at depth 8, B=8 x 1024 (3 steps, a checkpoint at 2,
      step 0's batch's loss lower after them, a warm step timed, each
      rank's peak memory) and the checkpoint resumed at (1, 1) here, its
      step's loss the sharded run's to 1e-3; 6b: full-width deepseek-moe-16b
      with classic EP at (1, 2) and 2D EP at (2, 2), at depth 4 in float32
      held to the one-process emulation of the same EP (``EPEmulation``,
-     router choices compared), then at full depth in bf16 the first 8 of
+     router choices compared), then at full depth in bf16 the first 4 of
      3a's prompts prefilled and decoded 8 greedy steps (both MoE
      branches), with the pairs dropped, the ``all_to_all`` bytes and each
      rank's peak memory; at (2, 2) the two data rows' copies of the first
@@ -132,10 +132,24 @@ Phases, in order; any failure exits non-zero before a result is printed:
      the same codes, a warm step, each rank's peak memory and bytes sent)
      and deepseek-v3 with TP of MLA (float32 depth 2 with and without the
      flag, the loss and every gradient within 1e-3; bf16 depth 4 with its
-     MoE layer under EP, the two decodes held to each other). Any rank's
-     failure fails the phase.
-``python3 chip_smoke.py --mesh-only`` runs phases 1 and 6 alone and prints
-no result lines.
+     MoE layer under EP, the two decodes held to each other); 6z: ZeRO-3
+     (the JAX package's training layout), smollm-360m at depth 2 in
+     float32 at (2, 1) and (2, 2) with zero3 against one rank (the loss,
+     the gradient norm and every parameter after a step within 1e-3), a
+     zero3 run at (2, 1) resumed from a checkpoint bitwise equal to the
+     straight run, and full-width full-depth starcoder2-3b in bf16 at
+     (2, 1) with zero3 and remat (one step: its time, each rank's peak
+     and resident state, beside the dry run's estimate with and without
+     zero3); 6m: mamba2-1.3b at depth 2 in float32 on a model axis of 2,
+     logits, greedy tokens, the loss and every gradient held to one rank,
+     the SSD kernels launched on each rank. Any rank's failure fails the
+     phase;
+  7. the dry run against the card — ``launch.dryrun``'s estimate of a
+     rank's peak memory (its inputs and the most its step holds beyond
+     them, on the meta device) beside the card's: phase 5's cell and
+     6z's starcoder2-3b rank.
+``python3 chip_smoke.py --mesh-only`` runs phases 1 and 6k-6c alone and
+prints no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1776,6 +1790,9 @@ TRAIN_B, TRAIN_T = 8, 1024
 #: B=8 x 1024 peaks above the ~72 GB this phase allows itself on the 80 GB
 #: card (80.06 GB by tools/train_probe.py, PERF.md), so B=4
 MAMBA_TRAIN_B, MAMBA_TRAIN_T = 4, 1024
+#: 5m's depth (of 48): each checkpoint moves the state through the disk
+#: (~13 GB at full depth), and the smoke has a time limit
+MAMBA_TRAIN_DEPTH = 24
 #: recurrentgemma-9b's (5r, and row 4bwd's shape): past its 2048 window, so
 #: the attention backward runs row 5r's masks; cut to RG_TRAIN_DEPTH layers
 #: (whole (rec, rec, attn) units), the deepest whose peak stays under ~72
@@ -1947,6 +1964,7 @@ def phase_train(steps=6, ckpt_at=3):
 
     # warm steps: the time a step, then one under the profiler
     state = profile_train_step(step_fn, state, batch, TRAIN_B * TRAIN_T)
+    MEASURED["5"] = torch.cuda.max_memory_allocated() / 1e9
     del model, state
     return launches
 
@@ -2069,32 +2087,34 @@ def phase_train_starcoder2(steps=3):
 
 
 def phase_train_mamba2(steps=3, ckpt_at=2):
-    """5m: ``repro_torch.launch.train.run`` on full-width full-depth
-    mamba2-1.3b in bf16 (48 layers, d_model 2048, 64 heads of 64, state
-    128; bf16 parameters, float32 AdamW moments), B=4 x 1024, lr 1e-3,
-    warmup 10, seed 0: ``steps`` straight steps with a checkpoint at
-    ``ckpt_at``, then the launcher's loop resumed from it and held bitwise
-    to the straight run's parameters (the SSD backward's determinism gate);
-    finite losses; ``ssd_chunked`` and ``ssd_chunked_bwd`` each launched
-    steps x 48 times; then warm steps timed and one traced on the resumed
-    model. Returns the straight run's launch counts."""
+    """5m: the launcher's loop (``launch.train.train_loop``, which ``run``
+    runs) on full-width mamba2-1.3b cut to ``MAMBA_TRAIN_DEPTH`` of its 48
+    layers in bf16 (d_model 2048, 64 heads of 64, state 128; bf16
+    parameters, float32 AdamW moments), B=4 x 1024, lr 1e-3, warmup 10,
+    seed 0: ``steps`` straight steps with a checkpoint at ``ckpt_at``,
+    then the loop resumed from it and held bitwise to the straight run's
+    parameters (the SSD backward's determinism gate); finite losses;
+    ``ssd_chunked`` and ``ssd_chunked_bwd`` each launched steps x depth
+    times; then warm steps timed and one traced on the resumed model.
+    Returns the straight run's launch counts."""
+    import dataclasses
     import tempfile
 
     from repro_torch.launch import train as launch
 
-    cfg = _arch("mamba2-1.3b")
-    log(f"[5m] train: full-width full-depth mamba2-1.3b (bf16, seed 0), "
-        f"B={MAMBA_TRAIN_B} T={MAMBA_TRAIN_T} (B=8 peaks above 72 GB), lr "
-        f"1e-3, warmup 10, AdamW")
+    cfg = dataclasses.replace(_arch("mamba2-1.3b"),
+                              n_layers=MAMBA_TRAIN_DEPTH)
+    log(f"[5m] train: full-width mamba2-1.3b at depth {MAMBA_TRAIN_DEPTH} "
+        f"(bf16, seed 0), B={MAMBA_TRAIN_B} T={MAMBA_TRAIN_T} (B=8 at "
+        f"full depth peaks above 72 GB), lr 1e-3, warmup 10, AdamW")
     kw = dict(batch=MAMBA_TRAIN_B, seq=MAMBA_TRAIN_T, lr=1e-3, warmup=10,
               seed=0, log_every=1, device="cuda")
     with tempfile.TemporaryDirectory() as ckpt:
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         t0 = time.perf_counter()
-        straight, losses = launch.run("mamba2-1.3b", smoke=False,
-                                      steps=steps, ckpt_dir=ckpt,
-                                      ckpt_every=ckpt_at, **kw)
+        straight, losses, _ = launch.train_loop(
+            cfg, steps=steps, ckpt_dir=ckpt, ckpt_every=ckpt_at, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -2193,8 +2213,11 @@ def phase_train_hybrid(steps=3):
 P6_DEVICE = "cuda:0"
 #: greedy decode steps of the mesh phases
 P6_STEPS = 8
-#: 6a's training: phase 5's optimizer settings
+#: 6a's training: phase 5's optimizer settings, at a depth cut (of 32: a
+#: step moves every weight's TP sums through gloo's host memory; at full
+#: depth 6a alone took 63-104 s of the smoke's time limit)
 P6_TRAIN = dict(lr=1e-3, warmup=10, seed=0)
+P6_TRAIN_DEPTH = 8
 #: 6b's prompts served again with the EP sums in rank order (the fourth of
 #: odd length)
 P6_WITNESS = 4
@@ -2492,7 +2515,8 @@ def p6_smollm_rank(rank, dev, cfg, model_par, prompts, steps, grads, ckpt,
         B, T = train_bt
         t0 = time.perf_counter()
         state, losses, step_fn = launch.train_loop(
-            cfg, steps=3, batch=B, seq=T, **P6_TRAIN, ckpt_dir=ckpt,
+            dataclasses.replace(cfg, n_layers=P6_TRAIN_DEPTH), steps=3,
+            batch=B, seq=T, **P6_TRAIN, ckpt_dir=ckpt,
             ckpt_every=2, log_every=0, device=dev, ctx=ctx)
         _sync(dev)
         out["train_s"] = time.perf_counter() - t0
@@ -2799,8 +2823,8 @@ def phase_mesh_smollm(card):
     split) and (2, 2): float32 prefill logits within 1e-3 of the largest
     logit of the single-rank card run and the greedy tokens equal; at
     (2, 2) also the loss and every logical gradient at phase 4t's depth
-    and batch (1e-3 of each leaf's largest value), bf16 training at full
-    depth (B=8 x 1024, 3 steps, the loss falling, a checkpoint at step 2)
+    and batch (1e-3 of each leaf's largest value), bf16 training at depth
+    ``P6_TRAIN_DEPTH`` (B=8 x 1024, 3 steps, the loss falling, a checkpoint at step 2)
     and that checkpoint resumed at (1, 1) here, its step's loss the
     sharded run's to 1e-3."""
     import dataclasses
@@ -2866,7 +2890,7 @@ def phase_mesh_smollm(card):
             if not (rel_loss <= 1e-5 and worst <= 1e-3):
                 raise SystemExit("6a: sharded gradients disagree")
             losses = r0["losses"]
-            log(f"  {mesh} bf16 training, full depth, B={TRAIN_B} x "
+            log(f"  {mesh} bf16 training, depth {P6_TRAIN_DEPTH}, B={TRAIN_B} x "
                 f"{TRAIN_T}: losses {['%.4f' % x for x in losses]}, step 0's"
                 f" batch again after them {r0['again']:.4f}; 3 steps in "
                 f"{r0['train_s']:.2f} s (first included), a warm step "
@@ -2878,7 +2902,8 @@ def phase_mesh_smollm(card):
                 (losses, r0["again"])
             assert all(v > 0 for v in r0["train_launches"].values())
             _, resumed, _ = launch.train_loop(
-                cfg, steps=3, batch=TRAIN_B, seq=TRAIN_T, **P6_TRAIN,
+                dataclasses.replace(cfg, n_layers=P6_TRAIN_DEPTH), steps=3,
+                batch=TRAIN_B, seq=TRAIN_T, **P6_TRAIN,
                 ckpt_dir=f"{tmp}/ckpt", resume=True, log_every=0,
                 device="cuda")
             rel3 = abs(resumed[0] - losses[2]) / abs(losses[2])
@@ -2896,7 +2921,7 @@ def phase_mesh_moe(card):
     dispatch branch) and 4 decode steps (the replicated one) held to the
     one-process emulation of the mesh's EP (``EPEmulation``) within 1e-3
     of the largest logit, the router's choices compared; then full depth
-    in bf16, the first 8 of 3a's prompts each prefilled and decoded
+    in bf16, the first 4 of 3a's prompts each prefilled and decoded
     greedily for P6_STEPS steps (an odd prompt length takes the replicated
     branch), with the pairs dropped and the ``all_to_all`` bytes. At
     (2, 2) both data rows serve each prompt: the greedy tokens that differ
@@ -2909,11 +2934,12 @@ def phase_mesh_moe(card):
     from repro_torch.launch.serve import make_requests
     full = _arch("deepseek-moe-16b")
     cfg4 = dataclasses.replace(full, n_layers=4)
-    # the first 8 of 3a's 16 prompts (one of odd length): every prompt's
-    # decode step is ~100 collectives through host memory
+    # the first 4 of 3a's 16 prompts (the fourth of odd length): every
+    # prompt's decode step is ~100 collectives through host memory (8
+    # prompts took 113-167 s of the smoke's time limit)
     prompts = [r.tokens for r in make_requests(full, 16, 200.0, seed=0,
                                                mean_prompt=256,
-                                               max_new=8)][:8]
+                                               max_new=8)][:P6_WITNESS]
     toks = np.random.default_rng(1).integers(0, full.vocab, (1, 260))
     check, feed = toks[:, :256], toks[:, 256:]
     log(f"[6b] mesh: deepseek-moe-16b at full width over gloo on one card "
@@ -3317,6 +3343,360 @@ def phase_mesh_seq(card):
     return launches
 
 
+# ------------------------------------------------- phases 6z, 6m and 7
+#: what phases measured that a later phase sets beside the dry run's
+#: estimate (phase 7): the peak memory of phase 5's warm steps, in GB
+MEASURED = {}
+
+#: 6z(i)'s step: smollm-360m at depth 2 in float32, B x T, an lr small
+#: enough that Adam's step of a gradient element near 0 (whose sign float32
+#: sums in another order can flip) moves a weight by less than 1e-3 of its
+#: leaf's largest value
+Z3_B, Z3_T, Z3_LR = 4, 256, 1e-5
+#: 6z(ii): starcoder2-3b's training batch, as phase 5s, at a depth cut (of
+#: 30): a step moves every weight's gathers and float32 gradient sums
+#: through gloo's host memory, ~100 s a step at full depth on the H100's
+#: host, past the smoke's time budget
+Z3_BIG_B, Z3_BIG_T, Z3_BIG_DEPTH = TRAIN_S_B, TRAIN_S_T, 10
+#: 6m: mamba2-1.3b at depth 2, float32: prompts, greedy steps, the
+#: gradients' batch
+M2_PROMPTS, M2_STEPS, M2_BT = (2, 256), 4, (2, 256)
+
+
+def _z3_ctx(model_par, zero3=True):
+    import dataclasses
+    return dataclasses.replace(_p6_ctx(model_par), zero3=zero3)
+
+
+def _z3_step(cfg, ctx, dev, B, T, lr):
+    """One float32 train step of ``cfg`` from seed 0's weights on the mesh
+    of ``ctx`` (none: one rank) over the launcher's batch of step 0.
+    Returns (loss, grad norm, the logical parameters after it on the host:
+    rank 0's, None on the others)."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.shardings import (gather_to_root, model_splits,
+                                              shard_batch)
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      make_train_step)
+    from repro_torch.training.trainer import TrainState
+    model = _seeded(cfg, torch.float32, dev, ctx)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    opt = AdamWConfig(lr=lr, warmup=1)
+    state = TrainState(params, adamw_init(params, opt), 0)
+    batch = launch.synthetic_batch(cfg, B, T, seed=0, step=0, device=dev)
+    state, met = make_train_step(model, opt)(
+        state, batch if ctx is None else shard_batch(batch, ctx))
+    if ctx is None:
+        after = {n: p.detach().cpu() for n, p in params.items()}
+    else:
+        shards = model_splits(model)
+        after = {n: gather_to_root(p, shards[n], ctx)
+                 for n, p in params.items()}
+    return float(met["loss"]), float(met["grad_norm"]), after
+
+
+def _resident(state):
+    """A rank's bytes of parameters and optimizer moments."""
+    return sum(t.numel() * t.element_size() for ts in (
+        state.params, state.opt.m, state.opt.v) for t in ts.values())
+
+
+def p6_zero3_rank(rank, dev, cfg, model_par, tmp, big, m2):
+    """6z on its rank, ZeRO-3 over "data": (i) ``_z3_step`` of ``cfg``
+    (smollm-360m at depth 2) on a (world / model_par, model_par) mesh; at
+    model_par 1 also (iii) the launcher's loop in bf16 for 2 steps with a
+    checkpoint at each, then a run resumed from step 1's checkpoint to
+    step 2, each rank's shards held bitwise to the straight run's; (ii)
+    ``big`` (starcoder2-3b at full width, a depth cut, bf16, remat): one
+    step through the launcher's loop (its init included), timed, with the
+    rank's peak memory and resident state bytes; and 6m's ranks on a
+    (1, 2) mesh of the same group (``_mamba2_rank``, ``m2`` its config)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch
+    _p6_setup()
+    ctx = _z3_ctx(model_par)
+    out = {"rank": rank}
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+    out["loss"], out["gnorm"], after = _z3_step(cfg, ctx, dev, Z3_B, Z3_T,
+                                                Z3_LR)
+    out["launches"] = {"flash_attention": fa.flash_attention.launches,
+                       "flash_attention_bwd":
+                       fa.flash_attention_bwd.launches}
+    if rank == 0:
+        out["params"] = {n: t.float().numpy() for n, t in after.items()}
+    del after
+    gc_cuda()
+    if model_par != 1:
+        return out
+    kw = dict(batch=Z3_B, seq=Z3_T, lr=1e-3, warmup=10, log_every=0,
+              device=dev, ctx=ctx)
+    straight, _, _ = launch.train_loop(cfg, steps=2, ckpt_dir=f"{tmp}/a",
+                                       ckpt_every=1, **kw)
+    if rank == 0:
+        os.makedirs(f"{tmp}/b")
+        shutil.copytree(f"{tmp}/a/step_00000001", f"{tmp}/b/step_00000001")
+    dist.barrier()
+    resumed, _, _ = launch.train_loop(cfg, steps=2, ckpt_dir=f"{tmp}/b",
+                                      ckpt_every=0, resume=True, **kw)
+    out["bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        straight.params.values(), resumed.params.values()))
+    del straight, resumed
+    gc_cuda()
+    _reset(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, losses, _ = launch.train_loop(
+        big, steps=1, batch=Z3_BIG_B, seq=Z3_BIG_T, remat=True, **P6_TRAIN,
+        log_every=0, device=dev, ctx=ctx)
+    _sync(dev)
+    out["big_ms"] = (time.perf_counter() - t0) * 1e3
+    out["big_losses"] = losses
+    out["big_peak"] = _peak(dev)
+    out["big_resident"] = _resident(state) / 1e9
+    del state
+    gc_cuda()
+    out["m2"] = _mamba2_rank(rank, dev, *m2)
+    return out
+
+
+def dry_estimate(arch, B, T, mesh_shape, remat, cfg=None, **changes):
+    """The dry run's (inputs, peak beyond them) of a rank's train step of
+    ``arch`` (``cfg`` in place of its config: a depth cut) at B x T on a
+    ``mesh_shape`` grid over ("data", "model"), in GB:
+    ``launch.dryrun.run_cell`` on the meta device (``changes`` to the
+    cell's ``ShardCtx``: ``zero3=False``)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import DryMesh
+    cell = specs.Cell(arch=arch, shape=ShapeCell(f"train_{B}x{T}", T, B,
+                                                 "train"), kind="train")
+    rec = dryrun.run_cell(cell, DryMesh(mesh_shape), cfg, remat=remat,
+                          **changes)
+    if rec["status"] != "ok":
+        raise SystemExit(f"7: the dry run of {arch} failed: {rec['error']}")
+    return (rec["input_bytes_per_device"] / 1e9,
+            rec["memory_analysis"]["temp_size_in_bytes"] / 1e9)
+
+
+@torch.no_grad()
+def _ssm_decode(model, tokens, steps):
+    """``_decode`` for a model whose caches are states (nothing to grow):
+    prefill ``tokens``, then ``steps`` greedy decode steps."""
+    dev, vocab = model.device, model.cfg.vocab
+    toks = torch.as_tensor(tokens, device=dev)
+    lg, caches = model.prefill({"tokens": toks})
+    outs, picks = [lg], [lg[:, 0, :vocab].argmax(-1)]
+    for s in range(steps):
+        lg, caches = model.decode_step(caches, picks[-1][:, None],
+                                       toks.shape[1] + s)
+        outs.append(lg)
+        picks.append(lg[:, 0, :vocab].argmax(-1))
+    return ([o[..., :vocab].float().cpu() for o in outs],
+            torch.stack(picks, 1).cpu())
+
+
+def _mamba2_rank(rank, dev, cfg, prompts):
+    """6m on its rank: ``cfg`` (mamba2-1.3b at depth 2) in float32 on a
+    (1, 2) mesh, its mixers whole on both ranks, its vocab split: prefill
+    logits of ``prompts`` and ``M2_STEPS`` greedy decode steps, then the
+    loss and every logical gradient of the launcher's batch ``M2_BT``,
+    with the SSD kernels' launches and the mixers' gradient sums."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.shardings import (gather_state, grad_sum_axes,
+                                              model_splits, shard_batch)
+    from repro_torch.training.trainer import sync_grads
+    ctx = _p6_ctx(2)
+    ssd_scan.ssd_chunked.launches = ssd_scan.ssd_chunked_bwd.launches = 0
+    model = _seeded(cfg, torch.float32, dev, ctx)
+    logits, picks = _ssm_decode(model, prompts, M2_STEPS)
+    model.requires_grad_(True)
+    batch = launch.synthetic_batch(cfg, *M2_BT, seed=0, step=0, device=dev)
+    loss = model.loss(shard_batch(batch, ctx))
+    loss.backward()
+    shards = model_splits(model)
+    axes = {n: grad_sum_axes(n, s, cfg, ctx) for n, s in shards.items()}
+    g = sync_grads({n: p.grad for n, p in model.named_parameters()}, axes,
+                   ctx)
+    g = gather_state(g, shards, ctx)
+    out = {"loss": float(loss.detach()),
+           "launches": {"ssd_chunked": ssd_scan.ssd_chunked.launches,
+                        "ssd_chunked_bwd": ssd_scan.ssd_chunked_bwd.launches},
+           "mixer_model_sums": [n for n, a in axes.items()
+                                if ".mix." in n and "model" in a]}
+    if rank == 0:
+        out.update(logits=[x.numpy() for x in logits], picks=picks.numpy(),
+                   grads={n: t.float().numpy() for n, t in g.items()})
+    del model, g, loss
+    gc_cuda()
+    return out
+
+
+def _mamba2_reference(cfg, prompts):
+    """6m's single-rank run on the card: logits, greedy tokens, loss and
+    gradients (on the host)."""
+    from repro_torch.launch import train as launch
+    model = _seeded(cfg, torch.float32, "cuda")
+    logits, picks = _ssm_decode(model, prompts, M2_STEPS)
+    model.requires_grad_(True)
+    loss = model.loss(launch.synthetic_batch(cfg, *M2_BT, seed=0, step=0,
+                                             device="cuda"))
+    loss.backward()
+    out = {"logits": logits, "picks": picks, "loss": float(loss.detach()),
+           "grads": {n: p.grad.float().cpu() for n, p in
+                     model.named_parameters()}}
+    del model, loss
+    gc_cuda()
+    return out
+
+
+def phase_mesh_zero3(card):
+    """6z: ZeRO-3 (the JAX package's training layout) on gloo, the ranks
+    sharing the one card: (i) smollm-360m at depth 2 in float32, one step at
+    (2, 1) and (2, 2) with zero3 against one rank: the loss, the gradient
+    norm and every parameter after the step within 1e-3 of the leaf's
+    largest value; (iii) at (2, 1) a resume from a checkpoint bitwise equal
+    to the straight run; (ii) starcoder2-3b at full width cut to
+    ``Z3_BIG_DEPTH`` layers, bf16, B=2 x 1024, at (2, 1) with zero3 and
+    remat for one step: its time, each rank's peak and resident state,
+    beside the dry run's estimate for that rank, and the dry run's for a
+    full-depth rank with and without zero3 (without it two full-depth ranks
+    would not fit one card: the dry run shows it, no run of it is tried).
+    The (2, 1) spawn also runs 6m's ranks (a (1, 2) mesh of the same 2
+    processes, one spawn fewer). Returns rank 0's (ii) peak, the dry run's
+    estimate of it, and 6m's results and reference."""
+    import dataclasses
+    import tempfile
+
+    cfg = dataclasses.replace(_arch("smollm-360m"), n_layers=2)
+    big = dataclasses.replace(_arch("starcoder2-3b"), n_layers=Z3_BIG_DEPTH)
+    m2cfg = dataclasses.replace(_arch("mamba2-1.3b"), n_layers=2)
+    m2prompts = np.random.default_rng(9).integers(0, m2cfg.vocab, M2_PROMPTS)
+    log(f"[6z] ZeRO-3 over gloo on one card ({card}); ranks on "
+        f"{P6_DEVICE}, collectives through host memory")
+    loss, gnorm, want = _z3_step(cfg, None, "cuda", Z3_B, Z3_T, Z3_LR)
+    gc_cuda()
+    m2want = _mamba2_reference(m2cfg, m2prompts)
+    est = {}
+    for z in (True, False):
+        inp, tmp = est[z] = dry_estimate("starcoder2-3b", Z3_BIG_B,
+                                         Z3_BIG_T, (2, 1), True, zero3=z)
+        log(f"  dry run, starcoder2-3b full depth, B={Z3_BIG_B} x "
+            f"{Z3_BIG_T} at (2, 1), remat, {'with' if z else 'without'} "
+            f"zero3: a rank's inputs {inp:.2f} GB + peak beyond them "
+            f"{tmp:.2f} GB = {inp + tmp:.2f} GB; two ranks "
+            f"{2 * (inp + tmp):.2f} GB of the card's 80")
+    cut = dry_estimate("starcoder2-3b", Z3_BIG_B, Z3_BIG_T, (2, 1), True,
+                       cfg=big)
+    with tempfile.TemporaryDirectory() as tmp:
+        for model_par, world in ((1, 2), (2, 4)):
+            mesh = (world // model_par, model_par)
+            res, wall = _mesh_spawn(p6_zero3_rank, world, (
+                cfg, model_par, tmp, big, (m2cfg, m2prompts)), tmp,
+                f"z3pg{world}")
+            r0 = res[0]
+            worst, worst_name = 0.0, None
+            for n, w in want.items():
+                top = max(float(w.abs().max()), 1e-30)
+                d = float(np.abs(r0["params"][n] - w.float().numpy()).max())
+                if d / top > worst:
+                    worst, worst_name = d / top, n
+            rl, rn = (abs(r0["loss"] - loss) / abs(loss),
+                      abs(r0["gnorm"] - gnorm) / abs(gnorm))
+            log(f"  {mesh} zero3: {world} ranks in {wall:.1f} s; depth 2 "
+                f"float32 B={Z3_B} x {Z3_T}: loss {r0['loss']:.6f} vs "
+                f"{loss:.6f} (relative {rl:.2e}), gradient norm "
+                f"{r0['gnorm']:.6f} vs {gnorm:.6f} ({rn:.2e}), {len(want)} "
+                f"parameters after the step, the largest difference over "
+                f"the leaf's largest value {worst:.3e} ({worst_name}; tol "
+                f"1e-3); launches a rank {[r['launches'] for r in res]}")
+            if not (rl <= 1e-3 and rn <= 1e-3 and worst <= 1e-3):
+                raise SystemExit(f"6z: {mesh} with zero3 disagrees with one "
+                                 "rank")
+            for r in res:
+                assert all(v > 0 for v in r["launches"].values()), r
+            if model_par != 1:
+                continue
+            m2 = [r["m2"] for r in res]
+            bitwise = [r["bitwise"] for r in res]
+            log(f"  {mesh} zero3, bf16 depth 2 through the launcher's loop:"
+                f" resumed from step 1's checkpoint, every rank's shards at "
+                f"step 2 bitwise equal to the straight run's: {bitwise}")
+            if not all(bitwise):
+                raise SystemExit("6z: the zero3 resume is not bitwise")
+            big_peak = max(r["big_peak"] for r in res)
+            log(f"  {mesh} zero3, starcoder2-3b full width, depth "
+                f"{Z3_BIG_DEPTH}, bf16, remat, B={Z3_BIG_B} x {Z3_BIG_T}: "
+                f"loss {['%.4f' % x for x in r0['big_losses']]}; one step "
+                f"through the launcher's loop, its init included, "
+                f"{r0['big_ms']:.1f} ms ({card}, gloo through host memory, "
+                f"2 ranks on one card); peak a rank "
+                f"{['%.2f GB' % r['big_peak'] for r in res]}; resident "
+                f"parameters and moments a rank "
+                f"{['%.2f GB' % r['big_resident'] for r in res]} (dry run: "
+                f"{cut[0]:.2f} GB with the batch)")
+            assert all(np.isfinite(r0["big_losses"])), r0["big_losses"]
+    return big_peak, cut, m2, m2want
+
+
+def phase_mesh_mamba2(card, res, want):
+    """6m: mamba2-1.3b at full width, depth 2, float32, on a model axis of
+    2 ranks (gloo on the one card; its ranks ran in 6z's spawn): prefill
+    logits and greedy decode steps, the loss and every logical gradient
+    against one rank, within 1e-3 of the largest value; ``ssd_chunked``
+    and its backward launched on each rank; no "model" sum of a mixer's
+    gradient."""
+    log(f"[6m] mamba2-1.3b, full width, depth 2, float32, at (1, 2) over "
+        f"gloo on one card ({card}): the mixers whole on both ranks, the "
+        "vocab split")
+    r0 = res[0]
+    rel = _rel(r0["logits"], [x.numpy() for x in want["logits"]])
+    same = np.array_equal(r0["picks"], want["picks"].numpy())
+    worst, worst_name = 0.0, None
+    for n, w in want["grads"].items():
+        top = max(float(w.abs().max()), 1e-30)
+        d = float(np.abs(r0["grads"][n] - w.numpy()).max()) / top
+        if d > worst:
+            worst, worst_name = d, n
+    rel_loss = abs(r0["loss"] - want["loss"]) / abs(want["loss"])
+    summed = sorted({n for r in res for n in r["mixer_model_sums"]})
+    log(f"  (1, 2): logits relative difference {rel:.3e} (tol 1e-3), "
+        f"greedy tokens equal: {same}; loss {r0['loss']:.6f} vs "
+        f"{want['loss']:.6f} ({rel_loss:.2e}); {len(want['grads'])} "
+        f"gradients, the largest difference over the leaf's largest value "
+        f"{worst:.3e} ({worst_name}; tol 1e-3); launches a rank "
+        f"{[r['launches'] for r in res]}; mixer gradients summed over "
+        f"'model': {summed}")
+    if not (rel <= 1e-3 and same and rel_loss <= 1e-3 and worst <= 1e-3):
+        raise SystemExit("6m: mamba2 on a model axis disagrees with one rank")
+    for r in res:
+        assert all(v > 0 for v in r["launches"].values()), r
+    assert not summed, summed
+
+
+def phase_dry_vs_card(card, z3_peak, z3_est):
+    """7: the dry run's estimate of a rank's peak (its inputs plus the
+    most it holds beyond them, on the meta device) beside the card's
+    ``max_memory_allocated``: phase 5's cell (smollm-360m, bf16, B=8 x
+    1024, one rank, no remat) and 6z(ii)'s rank (starcoder2-3b at (2, 1),
+    depth ``Z3_BIG_DEPTH``, with zero3 and remat)."""
+    inp, tmp = dry_estimate("smollm-360m", TRAIN_B, TRAIN_T, (1, 1), False)
+    rows = [("5: smollm-360m B=8 x 1024, one rank", inp + tmp,
+             MEASURED.get("5")),
+            (f"6z(ii): starcoder2-3b depth {Z3_BIG_DEPTH}, B=2 x 1024, "
+             "(2, 1), zero3, a rank", sum(z3_est), z3_peak)]
+    log(f"[7] the dry run against the card ({card})")
+    for label, est, got in rows:
+        if got is None:
+            log(f"  {label}: dry run {est:.2f} GB; the card's peak not "
+                "measured in this run")
+            continue
+        log(f"  {label}: dry run {est:.2f} GB, the card's peak {got:.2f} GB"
+            f", card / dry run {got / est:.3f}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3439,7 +3819,7 @@ def main() -> int:
     run_phase("4t", phase_train_grads, "mamba2-1.3b", n_layers=2, B=2,
               T=256, expect={"ssd_chunked": 2, "ssd_chunked_bwd": 2})
     run_phase("4t", phase_train_grads, "recurrentgemma-9b", n_layers=3, B=1,
-              T=256, expect={"rglru_scan": 2, "rglru_scan_bwd": 2,
+              T=128, expect={"rglru_scan": 2, "rglru_scan_bwd": 2,
                              "flash_attention": 1, "flash_attention_bwd": 1})
     launches["flash_attention_bwd"] = run_phase(
         "5", phase_train)["flash_attention_bwd"]
@@ -3464,6 +3844,11 @@ def main() -> int:
     # the sequence-sharded decode: the merge kernel's main path (its
     # launches are 6c's qwen run's, rank 0's)
     launches.update(run_phase("6c", phase_mesh_seq, card))
+    # the training layout (ZeRO-3), mamba2 on a model axis, and the dry
+    # run's memory estimate against the card's
+    z3_peak, z3_est, m2, m2want = run_phase("6z", phase_mesh_zero3, card)
+    run_phase("6m", phase_mesh_mamba2, card, m2, m2want)
+    run_phase("7", phase_dry_vs_card, card, z3_peak, z3_est)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, meta
 
 __all__ = ["expand_kv", "merge_partials", "attn_merge", "check_kv_map",
            "aligned", "sm_count", "DTYPES"]
@@ -75,10 +75,15 @@ def attn_merge(o: torch.Tensor, lse: torch.Tensor,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``merge_partials`` of o [n, R, D] and lse [n, R] (float32, base 2)
     into [R, D] of ``dtype`` (default float32): the combine kernel on a CUDA
-    tensor (D a multiple of 4), the plain version on a CPU one."""
+    tensor (D a multiple of 4), the plain version on a CPU one, an output
+    of the kernel's shape on a meta one (``kernels.meta``; a weighted sum:
+    a multiply-add a partial's element)."""
     dtype = dtype or torch.float32
     if o.device.type == "cpu":
         return merge_partials(o, lse).to(dtype)
+    if o.device.type == "meta":
+        meta.count("attn_merge", 2.0 * o.numel())
+        return meta.empty(*o.shape[1:], dtype=dtype)
     if o.device.type != "cuda":
         raise ValueError(f"attn_merge: no kernel for {o.device}")
     n, R, D = o.shape

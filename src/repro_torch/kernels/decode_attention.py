@@ -39,7 +39,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from . import _build
+from . import _build, meta
 from .attn_split import DTYPES, aligned, check_kv_map, expand_kv, sm_count
 from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
@@ -190,11 +190,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int8 codes worth ``code * kv_scale`` (``kv_scale`` is given for int8
     and only then); lengths: [B] valid cache slots; ``kv_map``: int32 [H]
     on q's device, query head -> KV head (None: Hk == H). Returns [B,H,D]
-    in q's dtype, or with ``partial`` (o [B,H,D], lse [B,H]) in float32."""
+    in q's dtype, or with ``partial`` (o [B,H,D], lse [B,H]) in float32.
+    On meta tensors, outputs of the kernel's shapes (``kernels.meta``), its
+    work counted over every one of the S slots."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, scale=scale,
                                       kv_map=kv_map, kv_scale=kv_scale,
                                       partial=partial)
+    if q.device.type == "meta":
+        B, H, D = q.shape
+        meta.count("decode_attention", 4.0 * H * D * B * k.shape[1])
+        if partial:
+            return meta.empty(B, H, D), meta.empty(B, H)
+        return meta.empty(B, H, D, dtype=q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     B, H, D = q.shape

@@ -42,7 +42,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..device import needs_grad
-from . import _build
+from . import _build, meta
 from .attn_split import DTYPES, aligned, check_kv_map, expand_kv, sm_count
 from .ref import attention_mask, flash_attention_ref
 
@@ -225,10 +225,16 @@ def _check(name: str, q, k, v, kv_map) -> None:
 
 def _forward(q, k, v, *, causal, window, q_offset, scale, kv_map,
              with_lse: bool):
-    """Launch the forward kernel; returns (out, lse or None)."""
-    _check("flash_attention", q, k, v, kv_map)
+    """Launch the forward kernel; returns (out, lse or None). On meta
+    tensors, outputs of the kernel's shapes (``kernels.meta``)."""
     B, T, H, D = q.shape
     S = k.shape[1]
+    if q.device.type == "meta":
+        meta.count("flash_attention", 4.0 * B * H * D * meta.visible_pairs(
+            T, S, causal=causal, window=window, q_offset=q_offset))
+        return (meta.empty(B, T, H, D, dtype=q.dtype),
+                meta.empty(B, H, T) if with_lse else None)
+    _check("flash_attention", q, k, v, kv_map)
     q, k, v = (aligned(x) for x in (q, k, v))
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse_out = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -332,16 +338,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row log-sum-exp ``lse`` [B, H, T] and the output's gradient ``dout``.
     ``kv_map_host``: the same map as ``kv_map``, as Python ints, from which
     the kernel's inverse map is built (the device map is never read back);
-    required with a ``kv_map`` on CUDA tensors. In bfloat16 each KV head's
+    required with a ``kv_map`` on CUDA tensors. On meta tensors, outputs of
+    the kernel's shapes (``kernels.meta``). In bfloat16 each KV head's
     query heads are split over ``bwd_split_plan``'s blocks;
     ``flash_attention_bwd.n_split`` is the split of the last launch."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
               kv_map=kv_map)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
-    _check("flash_attention_bwd", q, k, v, kv_map)
     B, T, H, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        meta.count("flash_attention_bwd", 2.5 * 4.0 * B * H * D *
+                   meta.visible_pairs(T, S, causal=causal, window=window,
+                                      q_offset=q_offset))
+        return tuple(meta.empty(*x.shape, dtype=x.dtype) for x in (q, k, v))
+    _check("flash_attention_bwd", q, k, v, kv_map)
     if out.shape != q.shape or dout.shape != q.shape \
             or lse.shape != (B, H, T) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "

@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..device import needs_grad
-from . import _build
+from . import _build, meta
 from .ref import rglru_ref, rglru_scan_bwd_plain
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_cost", "rglru_plan",
@@ -97,11 +97,16 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a/x: [B,T,W] float32; init_state: [B,W] float32 or None (zeros).
     Returns (h [B,T,W], final_state [B,W]), float32. ``init_state`` is only
-    read. A gradient goes through ``RglruScanFn`` on either device."""
+    read. A gradient goes through ``RglruScanFn`` on either device. On meta
+    tensors, outputs of the kernel's shapes (``kernels.meta``)."""
     if needs_grad(a, x, init_state):
         return RglruScanFn.apply(a, x, init_state)
     if a.device.type == "cpu":
         return rglru_scan_plain(a, x, init_state)
+    if a.device.type == "meta":
+        B, T, W = a.shape
+        meta.count("rglru_scan", rglru_cost(B, T, W, init_state is not None)[0])
+        return meta.empty(B, T, W), meta.empty(B, W)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for {a.device}")
     if a.dim() != 3:
@@ -173,9 +178,16 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
     """The gradient of ``rglru_scan``: a and the forward's h [B,T,W], its
     initial state [B,W] (or None), ``dh`` [B,T,W] and ``dhf`` [B,W] (the
     final state's adjoint; None for zeros), all float32. Returns (da, dx,
-    d init_state), the last None without an initial state."""
+    d init_state), the last None without an initial state. On meta
+    tensors, outputs of the kernel's shapes (``kernels.meta``)."""
     if a.device.type == "cpu":
         return rglru_scan_bwd_plain(a, h, init_state, dh, dhf)
+    if a.device.type == "meta":
+        B, T, W = a.shape
+        meta.count("rglru_scan_bwd", rglru_bwd_cost(
+            B, T, W, init_state is not None, dhf is not None)[0])
+        return (meta.empty(B, T, W), meta.empty(B, T, W),
+                None if init_state is None else meta.empty(B, W))
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd: no kernel for {a.device}")
     B, T, W = a.shape

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..device import needs_grad
-from . import _build
+from . import _build, meta
 from .ref import ssd_chunked_bwd_plain, ssd_dual, ssd_ref
 
 __all__ = ["ssd_chunked", "ssd_chunked_plain", "ssd_plain", "ssd_cost",
@@ -161,7 +161,8 @@ def ssd_chunked(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     into ``out_state`` when given (contiguous; it may be ``init_state``
     itself, which decode uses to update its cache in place), else into a
     new tensor; ``init_state`` is otherwise only read. A gradient goes
-    through ``SsdChunkedFn`` on either device (no ``out_state`` then)."""
+    through ``SsdChunkedFn`` on either device (no ``out_state`` then). On
+    meta tensors, outputs of the kernel's shapes (``kernels.meta``)."""
     if needs_grad(x, B, C, dt, A, D, init_state):
         if out_state is not None:
             raise ValueError("ssd_chunked: a gradient through the scan "
@@ -170,6 +171,12 @@ def ssd_chunked(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if x.device.type == "cpu":
         y, s = ssd_chunked_plain(x, B, C, dt, A, D, init_state)
         return y, (s if out_state is None else out_state.copy_(s))
+    if x.device.type == "meta":
+        Bz, T, H, hd = x.shape
+        meta.count("ssd_chunked", ssd_cost(Bz, T, H, hd, B.shape[-1])[0])
+        return (meta.empty(Bz, T, H, hd),
+                meta.empty(Bz, H, hd, B.shape[-1]) if out_state is None
+                else out_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked: no kernel for {x.device}")
     Bz, T, H, hd = x.shape
@@ -311,9 +318,16 @@ def ssd_chunked_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     """The gradient of ``ssd_chunked``: the forward's inputs, ``dy``
     [Bz,T,H,hd] and ``dsf`` [Bz,H,hd,N] (the final state's adjoint; None
     for zeros), all float32. Returns (dx, dB, dC, ddt, dA, dD, d
-    init_state), the last None without an initial state."""
+    init_state), the last None without an initial state. On meta tensors,
+    outputs of the kernel's shapes (``kernels.meta``)."""
     if x.device.type == "cpu":
         return ssd_chunked_bwd_plain(x, B, C, dt, A, D, init_state, dy, dsf)
+    if x.device.type == "meta":
+        Bz, T, H, hd = x.shape
+        meta.count("ssd_chunked_bwd",
+                   ssd_bwd_cost(Bz, T, H, hd, B.shape[-1])[0])
+        return (*(meta.empty(*t.shape) for t in (x, B, C, dt, A, D)),
+                None if init_state is None else meta.empty(*init_state.shape))
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked_bwd: no kernel for {x.device}")
     Bz, T, H, hd = x.shape

@@ -1,11 +1,19 @@
 """Meshes over ``torch.distributed`` (``repro.launch.mesh``'s
-counterpart): the process group's ranks laid out row-major on a
-``("data", "model")`` grid, as ``jax.make_mesh`` lays out devices, with a
-process group for each axis and for both.
+counterpart): the process group's ranks laid out row-major on a grid of
+named axes (``("data", "model")``, or the multi-pod ``("pod", "data",
+"model")``), as ``jax.make_mesh`` lays out devices, with a process group
+for each tuple of axes.
 
     init_distributed(device="cpu")           # RANK / WORLD_SIZE from torchrun
     mesh = make_mesh_for(world_size, model_par=2)
     ctx = ShardCtx(mesh=mesh)
+
+``make_production_mesh`` lays a group of 256 or 512 ranks out as the JAX
+package's production meshes, (16, 16) over ("data", "model") and (2, 16,
+16) over ("pod", "data", "model"); ``DryMesh`` is one rank's coordinates
+on such a grid with no process group (``backend`` "dry"), on which the
+collectives of ``models.sharding`` only record their calls: the dry run
+(``launch.dryrun``) runs a rank's step on it.
 
 The backend follows the device: ``nccl`` for CUDA, ``gloo`` for the CPU; a
 caller may name one (gloo with CUDA tensors stages each collective through
@@ -16,6 +24,7 @@ the sharded tests and ``chip_smoke.py`` start their ranks through it.
 from __future__ import annotations
 
 import itertools
+import math
 import os
 import queue
 import traceback
@@ -26,9 +35,16 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "make_mesh_for", "init_distributed", "spawn"]
+from ..models.sharding import CollectiveLog
+
+__all__ = ["Mesh", "DryMesh", "make_mesh_for", "make_production_mesh",
+           "init_distributed", "spawn"]
 
 AXES = ("data", "model")
+
+#: the JAX package's production meshes (``repro.launch.mesh``)
+PRODUCTION = {False: ((16, 16), AXES),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 class Mesh:
@@ -37,27 +53,34 @@ class Mesh:
     rank's coordinate, ``group(axes)`` the process group of the ranks that
     differ from this one only along ``axes`` (for axes of more than one
     rank; every rank creates every group, in one order, as
-    ``torch.distributed.new_group`` requires)."""
+    ``torch.distributed.new_group`` requires); ``log`` the collectives run
+    over it (``models.sharding.CollectiveLog``)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str] = AXES):
-        if len(shape) != len(axis_names):
-            raise ValueError(f"mesh shape {tuple(shape)} for axes "
-                             f"{tuple(axis_names)}")
         world = dist.get_world_size()
-        if int(torch.tensor(shape).prod()) != world:
-            raise ValueError(f"mesh {tuple(shape)} over {world} ranks")
-        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
-        self.names = tuple(axis_names)
-        self.rank = dist.get_rank()
+        self._place(shape, axis_names, world, dist.get_rank())
         self.backend = dist.get_backend()
         grid = torch.arange(world).reshape(tuple(shape))
-        self._coords = dict(zip(self.names, (int(c) for c in
-                                             (grid == self.rank).nonzero()[0])))
         self._groups: Dict[Tuple[str, ...], Any] = {}
         for r in range(1, len(self.names) + 1):
             for axes in itertools.combinations(self.names, r):
                 if self.size(axes) > 1:
                     self._make_groups(grid, axes)
+
+    def _place(self, shape, axis_names, world: int, rank: int) -> None:
+        """The grid's sizes by name and ``rank``'s coordinates on it."""
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(shape):
+            raise ValueError(f"mesh shape {tuple(shape)} for axes "
+                             f"{tuple(axis_names)}")
+        if math.prod(shape) != world:
+            raise ValueError(f"mesh {tuple(shape)} over {world} ranks")
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.names = tuple(axis_names)
+        self.rank = rank
+        self._coords = {}
+        for a, n in zip(reversed(self.names), reversed(tuple(shape))):
+            self._coords[a], rank = rank % n, rank // n
+        self.log = CollectiveLog()
 
     def _make_groups(self, grid: torch.Tensor, axes: Tuple[str, ...]):
         keep = [self.names.index(a) for a in axes]
@@ -82,8 +105,23 @@ class Mesh:
         return self._groups[tuple(axes)]
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape}, rank {self.rank} at {self._coords}, "
-                f"{self.backend})")
+        return (f"{type(self).__name__}({self.shape}, rank {self.rank} at "
+                f"{self._coords}, {self.backend})")
+
+
+class DryMesh(Mesh):
+    """Rank ``rank``'s place on a grid of ``shape`` over ``axis_names``,
+    with no process group: ``backend`` is "dry", and the collectives of
+    ``models.sharding`` record their calls in ``log`` and return
+    uninitialised results (the dry run's mesh, ``launch.dryrun``)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str] = AXES,
+                 rank: int = 0):
+        self._place(shape, axis_names, math.prod(shape), rank)
+        self.backend = "dry"
+
+    def group(self, axes: Sequence[str]):
+        raise RuntimeError("a dry mesh has no process group")
 
 
 def make_mesh_for(n_devices: int, model_par: int = 1) -> Mesh:
@@ -93,6 +131,23 @@ def make_mesh_for(n_devices: int, model_par: int = 1) -> Mesh:
         raise ValueError(f"model_par {model_par} does not divide "
                          f"{n_devices} ranks")
     return Mesh((n_devices // model_par, model_par))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         dry: bool = False) -> Mesh:
+    """The JAX package's production mesh: (16, 16) over ("data", "model"),
+    or (2, 16, 16) over ("pod", "data", "model") with ``multi_pod``, on the
+    process group this rank runs in, which must have 256 or 512 ranks.
+    With ``dry``, rank 0's ``DryMesh`` on it (no group: the dry run's)."""
+    shape, names = PRODUCTION[multi_pod]
+    if dry:
+        return DryMesh(shape, names)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(f"the {'multi' if multi_pod else 'single'}-pod "
+                         f"production mesh {shape} needs {math.prod(shape)} "
+                         f"ranks; the process group has {world}")
+    return Mesh(shape, names)
 
 
 def init_distributed(rank: Optional[int] = None,

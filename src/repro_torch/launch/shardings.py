@@ -3,23 +3,33 @@ counterpart), and moving state between logical arrays and a rank's
 shards.
 
 Placement is derived from the parameter's name and logical shape, as the
-JAX package derives its partition specs from the tree path:
+JAX package's ``param_pspec`` derives its partition specs from the tree
+path; a parameter gets up to two ``Split``s, its TP or EP ``shard`` and,
+under ``ShardCtx.zero3``, its ``z3`` split of another dim:
   * TP: the output dim of the projections in ``_OUT_TP`` (heads, MLA's
-    up-projections, d_ff, the untied vocab) and the input dim of the
-    out-projections in ``_IN_TP`` over "model"; the tied embedding's vocab
-    rows too;
+    up-projections, d_ff, the untied vocab, RG-LRU's branches) and the
+    input dim of the out-projections in ``_IN_TP`` over "model", the
+    embedding's vocab rows, RG-LRU's gates and decay by channel blocks;
   * EP: an expert bank's expert dim over ``ctx.ep_axes``;
-  * everything else (norm gains, the router, MLA's ``wq_a``/``wkv_a`` and
-    ``mtp_proj`` (JAX's ``_REPL``), SSM and RG-LRU mixers, which run only
-    where "model" has one rank) replicated;
-  * a dim the axes do not divide stays replicated (``ShardCtx.split``, the
-    JAX package's ``_guarded``).
-One difference: a GQA/MQA model's ``wk``/``wv`` stay replicated, since its
-KV heads are (``blocks.AttnDims``); the JAX package shards the weight and
-gathers it at use. A rank whose query heads read only some of those KV
-heads has a partial gradient for them, summed over "model"
-(``grad_sum_axes``), as is the router's when the experts are sharded and
-that of MLA's whole projections and norms (``_MLA_WHOLE``) under TP.
+  * ZeRO-3: the other dim of every ``w`` over ``zero3_axes`` (the input
+    dim, but the output dim of the out-projections and of the SSM mixer's
+    ``w_out``; the embedding's width), an expert bank's d (its dim 1) over
+    the zero3 axes that do not carry experts; norms, the router, conv
+    taps, biases, gates and the SSM's per-head vectors get none;
+  * everything else (MLA's ``wq_a``/``wkv_a`` and ``mtp_proj``, JAX's
+    ``_REPL``, and the SSM mixer, which runs whole on every rank of
+    "model") is whole over "model";
+  * a dim the axes do not divide stays whole (``ShardCtx.split``, the JAX
+    package's ``_guarded``).
+One difference: a GQA/MQA model's ``wk``/``wv`` stay whole over "model",
+since its KV heads are (``blocks.AttnDims``; under ZeRO-3 they are split
+over the zero3 axes by their input dim); the JAX package shards the
+weight over "model" and gathers it at use. A rank whose query heads read
+only some of those KV heads has a partial gradient for them, summed over
+"model" (``grad_sum_axes``), as is the router's when the experts are
+sharded and that of MLA's whole projections and norms (``_MLA_WHOLE``)
+under TP. RG-LRU and encoder-decoder models take their placement but do
+not build at a model axis above one rank (``models.lm._refuse_tp``).
 
 ``Model`` builds each parameter at its shard's shape with its ``Split`` as
 the parameter's ``shard`` (``models.lm.Model``); ``shard_state`` and
@@ -39,17 +49,21 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..models.sharding import (ShardCtx, Split, all_gather, gather_to_first,
-                               shard_tensor, slot_block)
+from ..models.sharding import (ShardCtx, Split, Splits, all_gather,
+                               gather_to_first, shard_tensor, slot_block,
+                               splits_of)
 
 __all__ = ["param_placement", "grad_sum_axes", "model_splits",
            "shard_state", "gather_state", "gather_to_root", "shard_batch",
            "shard_cache", "gather_cache", "join_kv_heads"]
 
 #: weight-dict parents whose 'w' has its OUTPUT dim split over "model"
-_OUT_TP = {"wq", "wk", "wv", "wq_b", "wk_b", "wv_b", "wi", "wg", "unembed"}
+_OUT_TP = {"wq", "wk", "wv", "wq_b", "wk_b", "wv_b", "wi", "wg", "unembed",
+           "w_x", "w_gate_branch"}
 #: parents whose 'w' has its INPUT dim split over "model"
-_IN_TP = {"wo"}
+_IN_TP = {"wo", "w_out_rg"}
+#: RG-LRU's block-diagonal gates and per-channel decay: dim 0 over "model"
+_CHANNEL_TP = {"gate_in", "gate_rec", "a_param"}
 #: expert banks ([E, d, F] / [E, F, d]), dim 0 = expert
 _EXPERT = {"w_in", "w_gate", "w_out"}
 #: projections whose KV heads stay replicated unless the model is MHA
@@ -67,37 +81,59 @@ def _kv_sharded(cfg) -> bool:
     return cfg.n_kv == cfg.n_heads
 
 
+Placement = Tuple[Optional[Split], Optional[Split]]
+
+
 def param_placement(name: str, shape: Tuple[int, ...], cfg,
-                    ctx: ShardCtx) -> Optional[Split]:
-    """The rank's ``Split`` of the parameter ``name`` (the port's name,
-    e.g. ``seg0.3.0.mix.wq.w``) of logical ``shape``, or None."""
+                    ctx: ShardCtx) -> Placement:
+    """The rank's (TP or EP ``Split``, ZeRO-3 ``Split``) of the parameter
+    ``name`` (the port's name, e.g. ``seg0.3.0.mix.wq.w``) of logical
+    ``shape``, each None where that split does not apply."""
     parts = name.split(".")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
-    mdl = ctx.model_axis
+
+    def tp(dim):
+        return ctx.split(dim, ctx.model_axis, shape[dim])
+
+    def z3(dim, axes=None):
+        axes = ctx.zero3_axes if axes is None else axes
+        return ctx.split(dim, axes, shape[dim]) if ctx.zero3 and axes \
+            else None
+
     if leaf == "embed":
-        return ctx.split(0, mdl, shape[0])
+        return tp(0), z3(1)
     if leaf in _EXPERT and len(shape) == 3:
-        return ctx.split(0, ctx.ep_axes, shape[0])
-    if parent in _KV and not _kv_sharded(cfg):
-        return None
-    if leaf == "w" and parent in _OUT_TP:
-        return ctx.split(1, mdl, shape[1])
-    if leaf == "w" and parent in _IN_TP:
-        return ctx.split(0, mdl, shape[0])
-    if leaf == "b" and parent in _OUT_TP:
-        return ctx.split(0, mdl, shape[0])
-    return None
+        spare = tuple(a for a in ctx.zero3_axes if a not in ctx.ep_axes)
+        return ctx.split(0, ctx.ep_axes, shape[0]), z3(1, spare)
+    if leaf in _CHANNEL_TP:
+        return tp(0), None
+    whole_kv = parent in _KV and not _kv_sharded(cfg)
+    if leaf == "b":
+        return (tp(0) if parent in _OUT_TP and not whole_kv else None), None
+    if leaf != "w":
+        return None, None
+    if whole_kv:
+        return None, z3(0)
+    if parent in _OUT_TP:
+        return tp(1), z3(0)
+    if parent in _IN_TP:
+        return tp(0), z3(1)
+    return None, z3(1 if parent == "w_out" else 0)
 
 
-def grad_sum_axes(name: str, split: Optional[Split], cfg,
+def grad_sum_axes(name: str, split: Splits, cfg,
                   ctx: ShardCtx) -> Tuple[str, ...]:
-    """The mesh axes over which a rank's gradient of ``name`` is summed
-    after the backward: the data axes (every rank holds its rows of the
-    batch) unless the parameter is split over them, and "model" for a
-    replicated parameter that only the rank's share of the work reaches
-    (GQA ``wk``/``wv`` and MLA's ``_MLA_WHOLE`` under TP, the router under
+    """The mesh axes, in the mesh's order, over which a rank's gradient of
+    ``name`` (its ``split``s, ``model_splits``) is summed after the
+    backward: the data axes (every rank holds its rows of the batch) but
+    those it is split over (a ZeRO-3 gradient arrives reduce-scattered
+    over them, ``sharding.gather_param``), and "model" for a parameter
+    whole there that only the rank's share of the work reaches (GQA
+    ``wk``/``wv`` and MLA's ``_MLA_WHOLE`` under TP, the router under
     EP)."""
-    own = set(split.axes) if split is not None else set()
+    if ctx.mesh is None:
+        return ()
+    own = {a for s in splits_of(split) for a in s.axes}
     axes = [a for a in ctx.batch_axes if a not in own]
     parts = name.split(".")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
@@ -107,17 +143,17 @@ def grad_sum_axes(name: str, split: Optional[Split], cfg,
                 and cfg.n_experts % ctx.ep_size == 0))
     if partial and ctx.model_axis not in own:
         axes.append(ctx.model_axis)
-    mesh_order = ("data", "model")
-    return tuple(a for a in mesh_order if a in axes and ctx.size(a) > 1)
+    return tuple(a for a in ctx.mesh.names if a in axes and ctx.size(a) > 1)
 
 
-def model_splits(model) -> Dict[str, Optional[Split]]:
-    """Each parameter's ``Split`` (None where whole), by name."""
-    return {n: getattr(p, "shard", None) for n, p in model.named_parameters()}
+def model_splits(model) -> Dict[str, Tuple[Split, ...]]:
+    """Each parameter's ``Split``s (``sharding.splits_of``: none where
+    whole), by name."""
+    return {n: splits_of(p) for n, p in model.named_parameters()}
 
 
 def shard_state(logical: Mapping[str, torch.Tensor],
-                shards: Mapping[str, Optional[Split]]
+                shards: Mapping[str, Splits]
                 ) -> Dict[str, torch.Tensor]:
     """The rank's blocks of logical tensors named as the parameters whose
     ``shards`` (``model_splits``) are given: parameters, gradients,
@@ -126,7 +162,7 @@ def shard_state(logical: Mapping[str, torch.Tensor],
 
 
 def gather_state(tensors: Mapping[str, torch.Tensor],
-                 shards: Mapping[str, Optional[Split]],
+                 shards: Mapping[str, Splits],
                  ctx: ShardCtx) -> Dict[str, torch.Tensor]:
     """The logical tensors, on the host, rebuilt from every rank's blocks
     (named as the parameters whose ``shards`` are given): copies, never
@@ -134,27 +170,34 @@ def gather_state(tensors: Mapping[str, torch.Tensor],
     it, in the same order."""
     out = {}
     for n, t in tensors.items():
-        s = shards[n]
         t = t.detach()
-        out[n] = (t if s is None else all_gather(t, ctx, s.axes, s.dim)
-                  ).to("cpu", copy=True)
+        for s in splits_of(shards[n]):
+            t = all_gather(t, ctx, s.axes, s.dim)
+        out[n] = t.to("cpu", copy=True)
     return out
 
 
-def gather_to_root(t: torch.Tensor, split: Optional[Split], ctx: ShardCtx
+def gather_to_root(t: torch.Tensor, split: Splits, ctx: ShardCtx
                    ) -> Optional[torch.Tensor]:
-    """The logical tensor of the rank's block ``t`` (its ``split``) as a
-    host copy on rank 0, None on every other rank. Only rank 0's group over
-    the split's axes moves data, a ``gather`` to rank 0; every other rank
-    holds a copy of one of those blocks and sends nothing. Every rank calls
-    it, in the same order."""
+    """The logical tensor of the rank's block ``t`` (its ``split``s) as a
+    host copy on rank 0, None on every other rank. Only the ranks whose
+    coordinates off the splits' axes are 0 move data: a ``gather`` to the
+    first rank of each group over the last split's axes, then over the
+    one before among those first ranks, which ends on rank 0; every other
+    rank holds a copy of one of those blocks and sends nothing. Every rank
+    calls it, in the same order."""
     mesh = ctx.mesh
-    if split is not None and not any(
-            mesh.coord(a) for a in mesh.names if a not in split.axes):
-        t = gather_to_first(t, ctx, split.axes, split.dim)
-    elif mesh.rank != 0:
-        t = None
-    return None if t is None else t.detach().to("cpu", copy=True)
+    splits = splits_of(split)
+    own = {a for s in splits for a in s.axes}
+    if any(mesh.coord(a) for a in mesh.names if a not in own):
+        return None
+    for i in reversed(range(len(splits))):
+        s = splits[i]
+        later = {a for s2 in splits[i + 1:] for a in s2.axes}
+        if any(mesh.coord(a) for a in later):
+            break                        # sent its block to a first rank
+        t = gather_to_first(t, ctx, s.axes, s.dim)
+    return None if mesh.rank != 0 else t.detach().to("cpu", copy=True)
 
 
 def shard_batch(batch: Mapping[str, torch.Tensor], ctx: Optional[ShardCtx]

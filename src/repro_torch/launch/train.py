@@ -10,18 +10,21 @@ restores the other's.
 Multi-device: started in a process group of N ranks (torchrun, or
 ``launch.mesh.spawn``), ``run`` lays them on a ``(N / model_par,
 model_par)`` mesh: data parallel over "data", tensor (and expert) parallel
-over "model". Every rank makes the whole batch of a step and keeps its
-rows; checkpoints hold logical arrays, so a run resumes on another mesh.
-Alone it is the ``(1, 1)`` run, unchanged.
+over "model", and with ``zero3`` (``--zero3``) each parameter and its
+optimizer moments also split over "data" (the JAX package's training
+layout, ``ShardCtx.zero3``). Every rank makes the whole batch of a step
+and keeps its rows; checkpoints hold logical arrays, so a run resumes on
+another mesh, with or without zero3. Alone it is the ``(1, 1)`` run,
+unchanged.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --full --steps 6 --batch 8 --seq 1024 --lr 1e-3 --warmup 10 \
         [--ckpt DIR --ckpt-every 3 --resume]
     # on a machine without a card: --device cpu (the smoke config by default)
-    # 4 ranks, 2 data x 2 model (gloo on the CPU, nccl on cards):
+    # 4 ranks, 2 data x 2 model (gloo on the CPU, nccl on cards), ZeRO-3:
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --model-par 2 --device cpu --steps 20 --seq 32
+        --model-par 2 --zero3 --remat --device cpu --steps 20 --seq 32
 
 ``run`` returns (state, losses), as the JAX launcher's does; ``train_loop``
 is its loop on a given config (a depth cut, say) and also returns the
@@ -84,28 +87,31 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 8,
         seq: int = 128, lr: float = 3e-4, seed: int = 0, ckpt_dir: str = "",
         ckpt_every: int = 50, resume: bool = False, model_par: int = 1,
         log_every: int = 10, remat: bool = False, warmup: int = 100,
-        device=None):
+        device=None, zero3: bool = False):
     """Train ``arch`` (its smoke config, or the full one with
     ``smoke=False``) in bf16 for steps ``[start, steps)``, ``start`` the
     newest checkpoint's step with ``resume`` and 0 otherwise, saving every
     ``ckpt_every`` steps into ``ckpt_dir``. Returns (state, losses).
 
     In a process group (``torch.distributed`` initialised) the run is this
-    rank's part of a ``(world / model_par, model_par)`` mesh; its state holds
-    the rank's shards. Alone, ``model_par`` must be 1."""
+    rank's part of a ``(world / model_par, model_par)`` mesh (ZeRO-3 over
+    "data" with ``zero3``); its state holds the rank's shards. Alone,
+    ``model_par`` must be 1."""
     state, losses, _ = train_loop(
         (SMOKES if smoke else ARCHS)[arch], steps=steps, batch=batch,
         seq=seq, lr=lr, seed=seed, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
         resume=resume, log_every=log_every, remat=remat, warmup=warmup,
-        device=device, ctx=mesh_ctx(model_par))
+        device=device, ctx=mesh_ctx(model_par, zero3))
     return state, losses
 
 
-def mesh_ctx(model_par: int = 1) -> ShardCtx:
+def mesh_ctx(model_par: int = 1, zero3: bool = False) -> ShardCtx:
     """The ``ShardCtx`` of the process group this rank runs in, laid out
-    ``(world / model_par, model_par)``; no mesh outside a process group."""
+    ``(world / model_par, model_par)``, with ZeRO-3 over "data" when
+    ``zero3``; no mesh outside a process group."""
     if dist.is_initialized():
-        return ShardCtx(mesh=make_mesh_for(dist.get_world_size(), model_par))
+        return ShardCtx(mesh=make_mesh_for(dist.get_world_size(), model_par),
+                        zero3=zero3)
     if model_par > 1:
         raise ValueError(
             f"model_par={model_par} needs a process group of at least "
@@ -173,6 +179,8 @@ def main() -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--zero3", action="store_true",
+                    help="ZeRO-3: parameters and moments split over 'data'")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args()
     device = a.device
@@ -184,7 +192,7 @@ def main() -> None:
                         seq=a.seq, lr=a.lr, seed=a.seed, ckpt_dir=a.ckpt,
                         ckpt_every=a.ckpt_every, resume=a.resume,
                         model_par=a.model_par, remat=a.remat,
-                        warmup=a.warmup, device=device)
+                        warmup=a.warmup, device=device, zero3=a.zero3)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -56,7 +56,8 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..kernels.attn_split import attn_merge
 from ..kernels.decode_attention import kv_dequant, partial_softmax
-from .layers import Dense, RMSNorm, SwiGLU, apply_rope, normal_, rmsnorm, rope
+from .layers import (Dense, RMSNorm, SwiGLU, apply_rope, logical_shape,
+                     normal_, rmsnorm, rope)
 from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_to_all, copy_to,
                        exchange, gather_from, gather_partial, pad_to_multiple,
                        reduce_from, scatter_to, slot_block)
@@ -608,8 +609,9 @@ class MoE(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         """The JAX init: N(0, 1/d) router and expert inputs, N(0, 1/F)
-        expert outputs, the shared SwiGLU as a dense one."""
-        d, F_ = self.w_in.shape[1], self.w_in.shape[2]
+        expert outputs, the shared SwiGLU as a dense one (d read off the
+        logical shape: ZeRO-3 splits it)."""
+        _, d, F_ = logical_shape(self.w_in)
         for w in (self.router, self.w_in, self.w_gate):
             normal_(w, generator, d ** -0.5)
         normal_(self.w_out, generator, F_ ** -0.5)
@@ -630,6 +632,12 @@ def _route(x_flat: torch.Tensor, router: torch.Tensor, top_k: int
     return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx
 
 
+def _host_count(t: torch.Tensor, on_meta: int) -> int:
+    """``int(t)``: a count read on the host. A meta tensor (the dry run,
+    ``launch.dryrun``) holds no value: ``on_meta`` stands for it."""
+    return on_meta if t.device.type == "meta" else int(t)
+
+
 def _expert_ffn(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
                 x: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
     """Grouped SwiGLU over rows sorted by expert, the function of JAX's
@@ -640,13 +648,13 @@ def _expert_ffn(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
     rows past a group are never read back.
 
     C is read on the host, one synchronisation a call: the buffer is sized
-    by it. The group offsets come from a search over the sorted ids (JAX's
+    by it (on the meta device, the balanced group ``ceil(rows / E)``). The group offsets come from a search over the sorted ids (JAX's
     ``bincount`` group sizes, as offsets), which needs no host read of the
     ids' range as ``torch.bincount`` makes on the card."""
     E, D = w_in.shape[0], x.shape[-1]
     bounds = torch.searchsorted(expert, torch.arange(
         E + 1, device=x.device, dtype=expert.dtype))
-    C = int((bounds[1:] - bounds[:-1]).max())
+    C = _host_count((bounds[1:] - bounds[:-1]).max(), -(-x.shape[0] // E))
     pos = torch.arange(x.shape[0], device=x.device) - bounds[expert]
     xp = x.new_zeros(E, C, D)
     xp[expert, pos] = x
@@ -725,10 +733,12 @@ def _ep_experts(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
                 recv_x: torch.Tensor, recv_e: torch.Tensor) -> torch.Tensor:
     """The shard's experts over the rows it received ([ep, cap, D] and their
     local ids): the grouped SwiGLU (``_expert_ffn``) over the filled slots,
-    zeros in the empty ones. One host read: the count of filled slots."""
+    zeros in the empty ones. One host read: the count of filled slots
+    (every one, ``ep * cap``, on the meta device)."""
     E_loc, D = w_in.shape[0], recv_x.shape[-1]
     rx, re = recv_x.reshape(-1, D), recv_e.reshape(-1)
-    live = torch.argsort(re, stable=True)[:int((re < E_loc).sum())]
+    live = torch.argsort(re, stable=True)[
+        :_host_count((re < E_loc).sum(), re.numel())]
     y = rx.new_zeros(rx.shape).index_put(
         (live,), _expert_ffn(w_in, w_gate, w_out, rx[live], re[live]))
     return y.reshape(recv_x.shape)
@@ -752,8 +762,9 @@ def _ep_partial(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
     the shard's experts ``[lo, lo + E_loc)`` only, its other pairs masked
     out. Decode gathers each token's experts' weights (the masked token
     gather, no host read); a longer input sorts the shard's pairs through
-    the grouped SwiGLU (one host read: the count of local pairs) and sums
-    each token's pairs in k order."""
+    the grouped SwiGLU (one host read: the count of local pairs, an even
+    share of them on the meta device) and sums each token's pairs in k
+    order."""
     N, D = xf.shape
     K, E_loc = cfg.top_k, w_in.shape[0]
     gates, idx = _route(xf, router, K)
@@ -766,7 +777,8 @@ def _ep_partial(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
         y = h.reshape(N, 1, -1) @ w_out[e].reshape(N, -1, D)
         return y.reshape(N, D).to(xf.dtype)
     e = torch.where(local, idx - lo, E_loc).reshape(-1)
-    rows = torch.argsort(e, stable=True)[:int(local.sum())]
+    rows = torch.argsort(e, stable=True)[:_host_count(
+        local.sum(), -(-N * K * E_loc // cfg.n_experts))]
     y = _expert_ffn(w_in, w_gate, w_out, xf[rows // K], e[rows])
     y = y * gates.reshape(-1)[rows][:, None].to(y.dtype)
     return xf.new_zeros(N * K, D).index_put((rows,), y).reshape(
@@ -897,7 +909,9 @@ def _causal_conv(x: torch.Tensor, taps: torch.Tensor,
     """Depthwise causal conv over time, in float32. x: [B, T, C]; taps:
     [W, C]; prev: the W-1 earlier steps [B, W-1, C], or None for zeros.
     Returns (y [B, T, C] float32, the last W-1 steps of ``[prev, x]`` in
-    x's dtype: the window the next call resumes from)."""
+    x's dtype: the window the next call resumes from, a copy, so that a
+    prefill's caches of every layer do not hold each layer's whole
+    ``[prev, x]``)."""
     B, T, C = x.shape
     W = taps.shape[0]
     if prev is None:
@@ -907,7 +921,7 @@ def _causal_conv(x: torch.Tensor, taps: torch.Tensor,
     y = s[:, 0:T] * t[0]
     for i in range(1, W):
         y = y + s[:, i:i + T] * t[i]
-    return y, seq[:, T:]
+    return y, seq[:, T:].clone()
 
 
 def ssd_apply(p: SSD, x: torch.Tensor, *, cfg: ArchConfig, mode: str,

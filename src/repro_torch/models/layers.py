@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .sharding import copy_to, reduce_from
+from .sharding import copy_to, reduce_from, splits_of
 
 __all__ = ["Dense", "RMSNorm", "SwiGLU", "normal_", "logical_shape",
            "rmsnorm", "rope", "apply_rope", "gqa_attention", "softmax_xent",
@@ -29,10 +29,10 @@ NORMAL_BLOCK = 1 << 30
 
 def logical_shape(param: torch.Tensor) -> Tuple[int, ...]:
     """The shape of the whole tensor of which ``param`` is a rank's block
-    (its ``shard``, a ``models.sharding.Split``), or its own shape."""
-    split = getattr(param, "shard", None)
+    (its ``shard`` and ``z3``, ``models.sharding.Split``s), or its own
+    shape."""
     shape = list(param.shape)
-    if split is not None:
+    for split in splits_of(param):
         shape[split.dim] *= split.parts
     return tuple(shape)
 
@@ -43,27 +43,27 @@ def normal_(param: torch.Tensor, generator: torch.Generator,
     """Fill ``param`` with N(0, scale^2) drawn in float32 on the generator's
     device, in blocks of its leading axis of at most ``NORMAL_BLOCK``
     values (one draw for any tensor that fits in one). A rank's shard draws
-    the whole logical tensor's blocks and keeps its own part, so every mesh
-    gets the same weights from one seed."""
-    split = getattr(param, "shard", None)
+    the whole logical tensor's blocks and keeps its own part of each of its
+    splits (``shard`` and ``z3``), so every mesh gets the same weights
+    from one seed."""
+    splits = splits_of(param)
     shape = logical_shape(param)
+    # rows [lo, lo + param.shape[0]) of the logical tensor are this rank's
+    lo = sum(s.index * param.shape[0] for s in splits if s.dim == 0)
     step = max(1, NORMAL_BLOCK // max(1, math.prod(shape[1:])))
     for r in range(0, shape[0], step):
         rows = min(step, shape[0] - r)
         x = torch.randn((rows,) + shape[1:], generator=generator,
                         device=generator.device, dtype=torch.float32)
+        a, b = max(r, lo), min(r + rows, lo + param.shape[0])
+        if a >= b:
+            continue
         x.mul_(scale)
-        if split is None:
-            param[r:r + step].copy_(x)
-        elif split.dim:
-            n = param.shape[split.dim]
-            param[r:r + step].copy_(x.narrow(split.dim, split.index * n, n))
-        else:
-            # rows [lo, hi) of the logical tensor are this rank's
-            lo = split.index * param.shape[0]
-            a, b = max(r, lo), min(r + rows, lo + param.shape[0])
-            if a < b:
-                param[a - lo:b - lo].copy_(x[a - r:b - r])
+        for s in splits:
+            if s.dim:
+                n = param.shape[s.dim]
+                x = x.narrow(s.dim, s.index * n, n)
+        param[a - lo:b - lo].copy_(x[a - r:b - r])
 
 
 class Dense(nn.Module):

@@ -45,6 +45,7 @@ tensor of per-sequence positions.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -62,7 +63,8 @@ from .blocks import (MLA, Attention, AttnDims, attn_apply, attn_init,
                      ssd_init)
 from .layers import Dense, RMSNorm, normal_, softmax_xent, xent_terms
 from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_reduce, copy_to,
-                       pad_to_multiple, reduce_from, slot_block)
+                       gather_param, pad_to_multiple, reduce_from,
+                       slot_block)
 
 __all__ = ["Model", "build_model", "Segment", "plan_segments"]
 
@@ -214,9 +216,18 @@ class Model(nn.Module):
     so the blocks' code is the same on every mesh), the vocab split over "model"
     where the embedding is (vocab-parallel lookup and cross-entropy;
     ``prefill`` and ``decode_step`` gather the logits), the batch the rank's
-    rows, the loss the mean over the whole batch of every data rank. SSM,
-    hybrid and encoder-decoder models run data parallel only (one rank on
-    "model")."""
+    rows, the loss the mean over the whole batch of every data rank. An SSM
+    model's mixers run whole on every rank of "model" (its vocab split
+    there); hybrid and encoder-decoder models run data parallel only (one
+    rank on "model").
+
+    Under ZeRO-3 (``ctx.zero3``) a parameter is also split over the zero3
+    axes (its ``z3``), and each layer (the embedding, the unembedding and
+    ``mtp_proj`` at their reads) runs with its parameters gathered
+    (``_gathered``, ``sharding.gather_param``); the gathered weights go
+    with the layer, and under ``remat`` the recompute gathers them again
+    (without ``remat`` autograd keeps what a layer's backward reads until
+    the backward)."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
                  device=None, remat: bool = False,
@@ -268,13 +279,15 @@ class Model(nn.Module):
         of the heads."""
         from ..launch.shardings import param_placement   # launch imports us
         for name, p in list(self.named_parameters()):
-            split = param_placement(name, tuple(p.shape), self.cfg, self.ctx)
+            split, z3 = param_placement(name, tuple(p.shape), self.cfg,
+                                        self.ctx)
             shape = list(p.shape)
-            if split is not None:
-                shape[split.dim] //= split.parts
+            for s in (split, z3):
+                if s is not None:
+                    shape[s.dim] //= s.parts
             new = nn.Parameter(torch.zeros(shape, dtype=p.dtype,
                                            device=device), requires_grad=False)
-            new.shard = split
+            new.shard, new.z3 = split, z3
             owner, _, leaf = name.rpartition(".")
             setattr(self.get_submodule(owner) if owner else self, leaf, new)
         for m in self.modules():
@@ -315,6 +328,29 @@ class Model(nn.Module):
     def _blocks(self, si: int) -> nn.ModuleList:
         return getattr(self, f"seg{si}")
 
+    @contextlib.contextmanager
+    def _gathered(self, *modules):
+        """Within the block, each ZeRO-3 parameter of ``modules`` (and of
+        their submodules) stands replaced by its gather over the zero3
+        axes (``gather_param``: differentiable, its gradient
+        reduce-scattered back to the shard); the shards are put back after
+        it, and the gathered tensors go with the last reference to them.
+        Does nothing without ZeRO-3."""
+        swapped = []
+        if self.ctx.zero3:
+            for m in modules:
+                for owner in (() if m is None else m.modules()):
+                    for leaf, p in owner._parameters.items():
+                        if getattr(p, "z3", None) is not None:
+                            swapped.append((owner, leaf, p))
+            for owner, leaf, p in swapped:
+                owner._parameters[leaf] = gather_param(p, self.ctx)
+        try:
+            yield
+        finally:
+            for owner, leaf, p in swapped:
+                owner._parameters[leaf] = p
+
     def _run_segments(self, x, mode: str, caches=None, pos=0, sink=None,
                       memory=None):
         """Returns (x, caches: list per segment). Decode writes into the
@@ -335,8 +371,9 @@ class Model(nn.Module):
                         continue
                     ci = None if caches is None else _tree_map(
                         lambda t: t[c], caches[si][i])
-                    x, nc = layer(x, cfg=self.cfg, mode=mode, cache=ci,
-                                  pos=pos, memory=memory)
+                    with self._gathered(layer):
+                        x, nc = layer(x, cfg=self.cfg, mode=mode, cache=ci,
+                                      pos=pos, memory=memory)
                     if sink is None:
                         outs[i].append(nc)
                     else:
@@ -358,9 +395,10 @@ class Model(nn.Module):
     def _train_layer(self, layer: "Layer", x: torch.Tensor, memory=None
                      ) -> torch.Tensor:
         """One layer in the train mode, recomputed in the backward when
-        ``remat``."""
+        ``remat`` (its ZeRO-3 gathers with it)."""
         def run(h, mem):
-            return layer(h, cfg=self.cfg, mode="train", memory=mem)[0]
+            with self._gathered(layer):
+                return layer(h, cfg=self.cfg, mode="train", memory=mem)[0]
         if self.remat and torch.is_grad_enabled():
             return checkpoint(run, x, memory, use_reentrant=False)
         return run(x, memory)
@@ -390,11 +428,12 @@ class Model(nn.Module):
         the others) and the rows are summed over "model"."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         split = getattr(self.embed, "shard", None)
+        embed = gather_param(self.embed, self.ctx)
         if split is None:
-            return F.embedding(tokens, self.embed)
-        local = tokens - split.index * self.embed.shape[0]
-        mine = (local >= 0) & (local < self.embed.shape[0])
-        rows = F.embedding(torch.where(mine, local, 0), self.embed)
+            return F.embedding(tokens, embed)
+        local = tokens - split.index * embed.shape[0]
+        mine = (local >= 0) & (local < embed.shape[0])
+        rows = F.embedding(torch.where(mine, local, 0), embed)
         rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
         return reduce_from(rows, self.ctx, split.axes)
 
@@ -403,7 +442,8 @@ class Model(nn.Module):
         attention and the SwiGLU in each layer, then ``enc_ln_f``."""
         x = torch.as_tensor(src_embeds, device=self.device).to(self.dtype)
         for layer in self.encoder:
-            x, _ = layer(x, cfg=self.cfg, mode="encode")
+            with self._gathered(layer):
+                x, _ = layer(x, cfg=self.cfg, mode="encode")
         return self.enc_ln_f(x, self.cfg.norm_eps)
 
     def _vocab_split(self):
@@ -417,7 +457,11 @@ class Model(nn.Module):
         split = self._vocab_split()
         if split is not None:
             x = copy_to(x, self.ctx, split.axes)
-        logits = x @ self.embed.T if self.unembed is None else self.unembed(x)
+        if self.unembed is None:
+            logits = x @ gather_param(self.embed, self.ctx).T
+        else:
+            with self._gathered(self.unembed):
+                logits = self.unembed(x)
         if self.vocab_padded != self.cfg.vocab:
             lo = 0 if split is None else split.index * logits.shape[-1]
             iota = lo + torch.arange(logits.shape[-1], device=logits.device)
@@ -492,7 +536,8 @@ class Model(nn.Module):
         loss = self._xent(x, labels)
         if self.mtp_layer is not None and "labels2" in batch:
             emb2 = self._lookup(labels.clamp(min=0))
-            h2 = self.mtp_proj(torch.cat([x, emb2.to(x.dtype)], -1))
+            with self._gathered(self.mtp_proj):
+                h2 = self.mtp_proj(torch.cat([x, emb2.to(x.dtype)], -1))
             h2 = self._train_layer(self.mtp_layer[0], h2)
             labels2 = torch.as_tensor(batch["labels2"], device=self.device)
             loss = loss + 0.3 * self._xent(h2, labels2)
@@ -613,8 +658,9 @@ class Model(nn.Module):
 
 def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
     """Tensor parallelism covers the dense and MoE families (MLA among
-    them, where the model axis divides its heads); the others raise rather
-    than run replicated."""
+    them, where the model axis divides its heads) and the SSM, whose mixer
+    runs whole on every rank of "model" (the JAX package's placement); the
+    RG-LRU and encoder-decoder models raise rather than run replicated."""
     m = ctx.model_size
     if m == 1:
         return
@@ -626,13 +672,14 @@ def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
         raise ValueError(f"{cfg.name}: {m} ranks on the model axis do not "
                          f"divide MLA's {cfg.n_heads} heads (JAX pads no "
                          "MLA head)")
-    for what, bad in (("an SSM mixer", cfg.family == "ssm"),
-                      ("an RG-LRU block", bool(cfg.block_pattern)),
-                      ("an encoder-decoder", cfg.enc_layers > 0)):
+    for what, bad in (("an RG-LRU block (its windowed ring sequence-"
+                       "sharded)", bool(cfg.block_pattern)),
+                      ("an encoder-decoder (its cross K/V sequence-"
+                       "sharded)", cfg.enc_layers > 0)):
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism of {what} is the next "
-                f"slice (ROADMAP queue 1 #8); run it with model_par=1 "
+                f"slice (ROADMAP queue 1 #8.5); run it with model_par=1 "
                 "(data parallel)")
 
 

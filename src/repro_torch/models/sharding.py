@@ -1,9 +1,16 @@
 """The sharding context (the JAX package's ``ShardCtx``) over
 ``torch.distributed``, and the collectives the sharded blocks run.
 
-Mesh axes are ``("data", "model")`` (``launch.mesh.make_mesh_for``):
+Mesh axes are ``("data", "model")`` (``launch.mesh.make_mesh_for``), or
+``("pod", "data", "model")`` on the multi-pod production mesh
+(``launch.mesh.make_production_mesh``):
 
-  * batch rows            -> "data"   (data parallelism, DP)
+  * batch rows            -> ``batch_axes``: "data", or ("pod", "data")
+                             (data parallelism, DP)
+  * a parameter's other
+    dim                   -> ``zero3_axes`` with ``zero3`` (ZeRO-3: the
+                             dim that TP does not split, split over the
+                             data axes too; see ``gather_param``)
   * attention heads, d_ff,
     the vocab             -> "model"  (tensor parallelism, TP)
   * the expert bank       -> ``ep_axes``: ("model",) or ("data", "model")
@@ -29,6 +36,20 @@ the rank's shard of a layer, ``reduce_from`` (the sum forward, identity
 backward) where partial outputs leave it. ``gather_from``/``scatter_to``
 split and rebuild a dim, ``exchange`` is the EP ``all_to_all``.
 
+Under ``zero3`` a parameter carries a second ``Split``, ``z3``, of the dim
+TP leaves whole (``launch.shardings.param_placement``; ``splits_of`` gives
+both), and every read of it in a forward goes through ``gather_param``: the
+blocks gathered over the zero3 axes, the gradient summed over them in
+float32 and the rank's block kept (a reduce-scatter).
+
+Every collective over more than one rank adds its kind (the JAX package's
+HLO names: ``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``all-to-all``), one call and its result's bytes to the mesh's ``log``
+(``CollectiveLog``), as the JAX dry run counts them in the partitioned HLO.
+On a dry mesh (``launch.mesh.DryMesh``, ``backend`` "dry") a collective
+records the call and returns an uninitialised result of its shape: the dry
+run (``launch.dryrun``) runs a rank's step on the meta device that way.
+
 A gloo group cannot take a CUDA tensor for every collective, so with the
 gloo backend a CUDA tensor is copied through host memory; that is decided
 from the backend and the tensor's device, before the call.
@@ -42,10 +63,10 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["HEAD_PAD", "pad_to_multiple", "Split", "ShardCtx", "EPStats",
-           "shard_tensor", "all_reduce", "all_gather", "gather_to_first",
-           "all_to_all",
+           "CollectiveLog", "splits_of", "shard_tensor", "all_reduce",
+           "all_gather", "reduce_scatter", "gather_to_first", "all_to_all",
            "copy_to", "reduce_from", "gather_from", "scatter_to",
-           "gather_partial", "exchange", "slot_block"]
+           "gather_partial", "gather_param", "exchange", "slot_block"]
 
 HEAD_PAD = 16
 
@@ -65,13 +86,27 @@ class Split(NamedTuple):
     parts: int
 
 
-def shard_tensor(t: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
-    """The rank's block of the logical ``t`` (``t`` itself when not
-    split)."""
-    if split is None:
-        return t
-    n = t.shape[split.dim] // split.parts
-    return t.narrow(split.dim, split.index * n, n)
+Splits = Union[None, Split, Tuple[Split, ...]]
+
+
+def splits_of(p: Union[torch.Tensor, Splits]) -> Tuple[Split, ...]:
+    """The ``Split``s of a parameter (its TP or EP ``shard``, then its
+    ZeRO-3 ``z3``), or of a ``Split``, a tuple of them or None: each
+    splits another dim."""
+    if isinstance(p, torch.Tensor):
+        p = (getattr(p, "shard", None), getattr(p, "z3", None))
+    if p is None or isinstance(p, Split):
+        p = (p,)
+    return tuple(s for s in p if s is not None)
+
+
+def shard_tensor(t: torch.Tensor, split: Splits) -> torch.Tensor:
+    """The rank's block of the logical ``t`` under ``split`` (a ``Split``,
+    a tuple of them, or None: ``t`` itself)."""
+    for s in splits_of(split):
+        n = t.shape[s.dim] // s.parts
+        t = t.narrow(s.dim, s.index * n, n)
+    return t
 
 
 @dataclass
@@ -96,6 +131,33 @@ class EPStats:
         self.seq_bytes = 0
 
 
+class CollectiveLog:
+    """The collectives a rank ran since ``zero()``, by kind under the JAX
+    package's names: ``{kind: {"count", "bytes"}}`` of the results, and
+    ``total_bytes`` (``as_dict``, the JAX dry run's ``collective_bytes``)."""
+
+    KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+
+    def __init__(self):
+        self.zero()
+
+    def zero(self) -> None:
+        self.kinds = {k: {"count": 0, "bytes": 0} for k in self.KINDS}
+
+    def add(self, kind: str, shape, dtype: torch.dtype) -> None:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        rec = self.kinds[kind]
+        rec["count"] += 1
+        rec["bytes"] += n * dtype.itemsize
+
+    def as_dict(self) -> dict:
+        out = {k: dict(v) for k, v in self.kinds.items()}
+        out["total_bytes"] = sum(v["bytes"] for v in self.kinds.values())
+        return out
+
+
 @dataclass
 class ShardCtx:
     """Carries the mesh and the axis names through model construction.
@@ -114,7 +176,12 @@ class ShardCtx:
     ``blocks.mla_apply``). Prefill and training are as without it; at a
     model axis of one rank it changes nothing.
 
-    ``zero3`` is not ported: setting it raises.
+    ``zero3``: training's ZeRO-3 (the JAX package's training layout,
+    ``launch.specs.make_ctx``): each parameter's dim that TP leaves whole
+    is also split over ``zero3_axes`` where they divide it (the ``z3``
+    split, ``launch.shardings.param_placement``), gathered at each read
+    (``gather_param``), its gradient reduce-scattered; the optimizer
+    moments are the parameter's shards.
     """
 
     mesh: Optional[Any] = None
@@ -125,13 +192,9 @@ class ShardCtx:
     #: parameter layout is mesh-independent
     head_pad: int = HEAD_PAD
     zero3: bool = False
+    zero3_axes: Axes = ("data",)
     kv_seq_shard: bool = False
     stats: EPStats = field(default_factory=EPStats)
-
-    def __post_init__(self):
-        if self.zero3:
-            raise NotImplementedError(
-                "ShardCtx(zero3=True) is not ported yet (ROADMAP queue 1 #8)")
 
     @property
     def seq_sharded(self) -> bool:
@@ -216,12 +279,23 @@ def _staged(ctx: ShardCtx, t: torch.Tensor) -> bool:
     return ctx.mesh.backend == "gloo" and t.is_cuda
 
 
+def _record(ctx: ShardCtx, kind: str, shape, dtype) -> bool:
+    """Add the call to the mesh's ``log``; True on a dry mesh, where the
+    caller returns an uninitialised result of ``shape`` instead."""
+    log = getattr(ctx.mesh, "log", None)
+    if log is not None:
+        log.add(kind, shape, dtype)
+    return ctx.mesh.backend == "dry"
+
+
 def all_reduce(t: torch.Tensor, ctx: Optional[ShardCtx], axes,
                op: str = "sum") -> torch.Tensor:
     """The sum (or ``op="max"``) of ``t`` over the ranks of ``axes``, as a
     new tensor."""
     if not _active(ctx, axes):
         return t
+    if _record(ctx, "all-reduce", t.shape, t.dtype):
+        return torch.empty_like(t)
     staged = _staged(ctx, t)
     buf = t.detach().to("cpu" if staged else t.device, copy=True)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
@@ -236,6 +310,10 @@ def all_gather(t: torch.Tensor, ctx: Optional[ShardCtx], axes,
     row-major rank order."""
     if not _active(ctx, axes):
         return t
+    shape = list(t.shape)
+    shape[dim] *= ctx.size(axes)
+    if _record(ctx, "all-gather", shape, t.dtype):
+        return t.new_empty(shape)
     staged = _staged(ctx, t)
     src = t.detach().to("cpu" if staged else t.device).contiguous()
     parts = [torch.empty_like(src) for _ in range(ctx.size(axes))]
@@ -244,12 +322,36 @@ def all_gather(t: torch.Tensor, ctx: Optional[ShardCtx], axes,
     return out.to(t.device) if staged else out
 
 
+def reduce_scatter(t: torch.Tensor, ctx: Optional[ShardCtx], axes,
+                   dim: int) -> torch.Tensor:
+    """The rank's block along ``dim`` of the sum of ``t`` over the ranks of
+    ``axes`` (blocks in row-major rank order), as a new tensor: an
+    ``all_reduce`` and the block kept (gloo has no reduce-scatter)."""
+    if not _active(ctx, axes):
+        return t
+    n = t.shape[dim] // ctx.size(axes)
+    shape = list(t.shape)
+    shape[dim] = n
+    if _record(ctx, "reduce-scatter", shape, t.dtype):
+        return t.new_empty(shape)
+    staged = _staged(ctx, t)
+    buf = t.detach().to("cpu" if staged else t.device, copy=True)
+    dist.all_reduce(buf, group=ctx.mesh.group(_axes(axes)))
+    out = buf.narrow(dim, ctx.index(axes) * n, n).contiguous()
+    return out.to(t.device) if staged else out
+
+
 def gather_to_first(t: torch.Tensor, ctx: ShardCtx, axes, dim: int
                     ) -> Optional[torch.Tensor]:
     """The ranks' ``t`` over ``axes`` concatenated along ``dim`` on the
-    group's first rank (row-major), None on the others."""
+    group's first rank (row-major), None on the others. Logged as an
+    ``all-gather`` of what the first rank receives."""
     if not _active(ctx, axes):
         return t
+    shape = list(t.shape)
+    shape[dim] *= ctx.size(axes)
+    if _record(ctx, "all-gather", shape, t.dtype):
+        return None if ctx.index(axes) else t.new_empty(shape)
     staged = _staged(ctx, t)
     src = t.detach().to("cpu" if staged else t.device).contiguous()
     group = ctx.mesh.group(_axes(axes))
@@ -266,6 +368,8 @@ def all_to_all(t: torch.Tensor, ctx: Optional[ShardCtx], axes
     and block i of the result came from rank i."""
     if not _active(ctx, axes):
         return t
+    if _record(ctx, "all-to-all", t.shape, t.dtype):
+        return torch.empty_like(t)
     staged = _staged(ctx, t)
     src = t.detach().to("cpu" if staged else t.device).contiguous()
     out = torch.empty_like(src)
@@ -323,15 +427,15 @@ class _ScatterTo(torch.autograd.Function):
 
 class _GatherPartial(torch.autograd.Function):
     @staticmethod
-    def forward(fctx, x, ctx, axes, dim):
-        fctx.args = (ctx, axes, dim)
+    def forward(fctx, x, ctx, axes, dim, acc):
+        fctx.args, fctx.acc = (ctx, axes, dim), acc
         return all_gather(x, ctx, axes, dim)
 
     @staticmethod
     def backward(fctx, g):
-        ctx, axes, dim = fctx.args
-        return (_block(all_reduce(g, ctx, axes), ctx, axes, dim)
-                .contiguous(), None, None, None)
+        acc = g.dtype if fctx.acc is None else fctx.acc
+        return (reduce_scatter(g.to(acc), *fctx.args).to(g.dtype), None,
+                None, None, None)
 
 
 class _Exchange(torch.autograd.Function):
@@ -369,12 +473,30 @@ def scatter_to(x, ctx: Optional[ShardCtx], axes, dim: int):
     return _ScatterTo.apply(x, ctx, axes, dim) if _active(ctx, axes) else x
 
 
-def gather_partial(x, ctx: Optional[ShardCtx], axes, dim: int):
+def gather_partial(x, ctx: Optional[ShardCtx], axes, dim: int,
+                   acc: Optional[torch.dtype] = None):
     """The ranks' ``x`` joined along ``dim`` into an input of which every
     rank computes a partial result: the gradient is summed over ``axes``
-    and the rank's block kept."""
-    return (_GatherPartial.apply(x, ctx, axes, dim) if _active(ctx, axes)
-            else x)
+    (in ``acc``, default its dtype) and the rank's block kept (a
+    reduce-scatter)."""
+    return (_GatherPartial.apply(x, ctx, axes, dim, acc)
+            if _active(ctx, axes) else x)
+
+
+def gather_param(p: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """A parameter as a layer computes with it: under ZeRO-3 (its ``z3``
+    split) its blocks gathered over the zero3 axes, and in the backward the
+    gradient summed over them in float32 and the rank's block kept (a
+    reduce-scatter: each data rank's rows give a part of the gradient, so
+    ``trainer.sync_grads`` sums it over no zero3 axis again); the result
+    keeps the parameter's TP or EP ``shard``. Any other parameter is
+    returned as it is."""
+    split = getattr(p, "z3", None)
+    if split is None:
+        return p
+    out = gather_partial(p, ctx, split.axes, split.dim, torch.float32)
+    out.shard = getattr(p, "shard", None)
+    return out
 
 
 def exchange(x, ctx: Optional[ShardCtx], axes):

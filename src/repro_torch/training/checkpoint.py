@@ -13,8 +13,8 @@ bfloat16 is stored as its uint16 bits with the dtype string
 is needed. Writes are atomic (a temp dir, then a rename): a failure mid-
 write never leaves a directory that ``latest_step`` would take.
 
-A sharded state (parameters with a ``shard``, ``models.lm.Model`` under a
-mesh) is saved as its logical arrays, gathered to rank 0 one tensor at a
+A sharded state (parameters with a ``shard`` and, under ZeRO-3, a ``z3``
+split: ``models.lm.Model`` under a mesh) is saved as its logical arrays, gathered to rank 0 one tensor at a
 time as rank 0 writes them. A restore takes each rank's block of every
 array, so a checkpoint moves between meshes, and between the port and the
 JAX package.
@@ -37,7 +37,7 @@ import torch.distributed as dist
 
 from ..launch.shardings import gather_to_root
 from ..models.convert import jax_key, jax_path
-from ..models.sharding import ShardCtx, shard_tensor
+from ..models.sharding import ShardCtx, shard_tensor, splits_of
 from .optim import AdamWState
 from .trainer import TrainState
 
@@ -90,7 +90,7 @@ def _to_savable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 
 def _shards(state: TrainState):
-    return {n: getattr(p, "shard", None) for n, p in state.params.items()}
+    return {n: splits_of(p) for n, p in state.params.items()}
 
 
 def save_checkpoint(directory: str, step: int, state: TrainState,

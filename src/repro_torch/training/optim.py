@@ -22,7 +22,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models.sharding import ShardCtx, all_reduce
+from ..models.sharding import ShardCtx, all_reduce, splits_of
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
            "global_norm"]
@@ -59,14 +59,15 @@ def global_norm(tensors: Mapping[str, torch.Tensor],
                 ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """sqrt of the sum of every element's square, in float32; a 0-dim tensor
     on the tensors' device (no host synchronisation). Under a mesh, with
-    each tensor's ``shards`` entry (its ``Split`` or None), the norm of the
-    logical tensors: the squares of the split ones summed over their axes,
-    each replicated one counted once."""
+    each tensor's ``shards`` entry (its ``Split``s, or None), the norm of
+    the logical tensors: the squares of the split ones summed over the
+    axes of their splits, each replicated one counted once."""
     sums: Dict[Tuple[str, ...], torch.Tensor] = {}
     for n, t in tensors.items():
         s = t.float().square().sum()
-        split = None if shards is None else shards[n]
-        axes = () if split is None else split.axes
+        own = {a for sp in splits_of(None if shards is None else shards[n])
+               for a in sp.axes}
+        axes = tuple(a for a in (ctx.mesh.names if own else ()) if a in own)
         sums[axes] = s if axes not in sums else sums[axes] + s
     total = sums.pop((), None)
     for axes, s in sums.items():        # the same order on every rank

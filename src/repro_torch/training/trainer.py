@@ -84,10 +84,11 @@ def make_train_step(model: Model, cfg: AdamWConfig = AdamWConfig()):
 
     Under a mesh (``model.ctx``) ``batch`` is the rank's rows
     (``launch.shardings.shard_batch``), the loss the whole batch's mean;
-    each gradient is summed in float32 over the data axes and, for a
-    replicated parameter only the rank's share of the work reaches, over
-    "model" (``sync_grads``), the norm is the logical gradient's, and AdamW
-    updates each rank's shards."""
+    each gradient is summed in float32 over the data axes (a ZeRO-3
+    parameter's arrives reduce-scattered over them from its gathers) and,
+    for a replicated parameter only the rank's share of the work reaches,
+    over "model" (``sync_grads``), the norm is the logical gradient's, and
+    AdamW updates each rank's shards."""
     decay = {n: jax_ndim(n, p) >= 2 for n, p in model.named_parameters()}
     ctx, shards = model.ctx, model_splits(model)
     sum_axes = {n: grad_sum_axes(n, s, model.cfg, ctx)

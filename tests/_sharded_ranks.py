@@ -9,7 +9,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import SMOKES
-from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.launch.mesh import Mesh, make_mesh_for
 from repro_torch.launch.shardings import (gather_cache, gather_state,
                                           grad_sum_axes, join_kv_heads,
                                           model_splits, shard_batch,
@@ -28,10 +28,22 @@ def fake_mesh(data, model):
                                  coord=lambda axis: 0, backend="gloo")
 
 
-def _ctx(model_par, ep_axes=("model",), kv_seq_shard=False):
+def _ctx(model_par, ep_axes=("model",), kv_seq_shard=False, zero3=False,
+         pods=1):
+    """A ``(world / model_par, model_par)`` mesh, or with ``pods`` > 1 a
+    ``(pods, world / pods / model_par, model_par)`` one over ("pod",
+    "data", "model") whose batch (and zero3) axes are ("pod", "data")."""
     torch.set_num_threads(1)
-    return ShardCtx(mesh=make_mesh_for(dist.get_world_size(), model_par),
-                    ep_axes=tuple(ep_axes), kv_seq_shard=kv_seq_shard)
+    world = dist.get_world_size()
+    if pods == 1:
+        mesh, batch = make_mesh_for(world, model_par), ("data",)
+    else:
+        mesh = Mesh((pods, world // pods // model_par, model_par),
+                    ("pod", "data", "model"))
+        batch = ("pod", "data")
+    return ShardCtx(mesh=mesh, batch_axes=batch, ep_axes=tuple(ep_axes),
+                    kv_seq_shard=kv_seq_shard, zero3=zero3,
+                    zero3_axes=batch)
 
 
 def _model(arch, params, ctx, dtype=torch.float32, changes=None):
@@ -227,13 +239,16 @@ def ep_layer(rank, dev, model_par, ep_axes, layer, cfg, cases):
 
 
 def _train(ctx, arch, params, steps, batch, seq, lr, ckpt_dir="",
-           restore=0):
+           restore=0, report=None):
     """``steps`` train steps (float32, AdamW with ``lr`` and warmup 1) of
     ``arch`` from the JAX ``params``, or from the checkpoint of step
     ``restore`` in ``ckpt_dir``, on the batches of the JAX launcher's
     stream (seed 0); the state saved into ``ckpt_dir`` after the last.
     Returns each step's (loss, grad norm) and the logical parameters and
-    moments after it."""
+    moments after it. A ``report`` dict gets the rank's resident bytes of
+    parameters and moments (``resident``) and of those with no ZeRO-3
+    split (``whole``), the collectives of the first step (``log``) and
+    the (token, expert) pairs every rank dropped (``dropped``)."""
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.training import (AdamWConfig, adamw_init,
                                       make_train_step, restore_checkpoint,
@@ -248,11 +263,20 @@ def _train(ctx, arch, params, steps, batch, seq, lr, ckpt_dir="",
         state = restore_checkpoint(ckpt_dir, restore, state)
     step_fn = make_train_step(model, opt)
     shards = model_splits(model)
+    if report is not None:
+        def nbytes(z3):
+            return sum(3 * p.numel() * p.element_size() for p in tp.values()
+                       if (getattr(p, "z3", None) is not None) == z3)
+        report.update(whole=nbytes(False), resident=nbytes(False)
+                      + nbytes(True))
     metrics, states = [], []
     for s in range(state.step, state.step + steps):
         data = synthetic_batch(model.cfg, batch, seq, seed=0, step=s,
                                device="cpu")
+        ctx.mesh.log.zero()
         state, met = step_fn(state, shard_batch(data, ctx))
+        if report is not None and "log" not in report:
+            report["log"] = ctx.mesh.log.as_dict()
         metrics.append((float(met["loss"]), float(met["grad_norm"])))
         states.append({k: {n: t.numpy() for n, t in
                            gather_state(ts, shards, ctx).items()}
@@ -260,6 +284,10 @@ def _train(ctx, arch, params, steps, batch, seq, lr, ckpt_dir="",
                                      ("m", state.opt.m), ("v", state.opt.v))})
     if ckpt_dir:
         save_checkpoint(ckpt_dir, state.step, state, ctx)
+    if report is not None:
+        report["dropped"] = int(all_gather(
+            torch.as_tensor(ctx.stats.dropped).reshape(1), ctx,
+            ctx.mesh.names, 0).sum())
     return metrics, states
 
 
@@ -270,16 +298,28 @@ def train_steps(rank, dev, jobs):
     return out if rank == 0 else None
 
 
-def launcher(rank, dev, ckpt_dir):
+def train_meshes(rank, dev, jobs):
+    """``_train`` of each job (``_ctx`` keywords, arch, JAX params, steps,
+    batch, seq, lr, ckpt_dir, restore step) on its own mesh of the group:
+    (metrics, states, report)."""
+    out = []
+    for kw, *job in jobs:
+        report = {}
+        out.append((*_train(_ctx(**kw), *job, report=report), report))
+    return out if rank == 0 else None
+
+
+def launcher(rank, dev, ckpt_dir, zero3=False):
     """``launch.train.run`` with ``model_par=2`` in this process group
-    (smoke smollm-360m, bf16): 3 steps with a checkpoint at 2, then a
-    resume from it to step 4."""
+    (smoke smollm-360m, bf16; ZeRO-3 with remat with ``zero3``): 3 steps
+    with a checkpoint at 2, then a resume from it to step 4."""
     from repro_torch.launch.train import run
     torch.set_num_threads(1)
+    kw = dict(zero3=True, remat=True) if zero3 else {}
     state, losses = run("smollm-360m", steps=3, batch=2, seq=16,
                         ckpt_dir=ckpt_dir, ckpt_every=2, model_par=2,
-                        log_every=0, device="cpu")
+                        log_every=0, device="cpu", **kw)
     _, more = run("smollm-360m", steps=4, batch=2, seq=16, ckpt_dir=ckpt_dir,
-                  resume=True, model_par=2, log_every=0, device="cpu")
+                  resume=True, model_par=2, log_every=0, device="cpu", **kw)
     return (type(state).__name__, state.step, losses, more,
             {n: tuple(p.shape) for n, p in state.params.items()})

@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _off_card import off_card
 from repro.configs import SMOKES as JSMOKES
 from repro.kernels import ref as jref
 from repro.kernels.rglru import rglru_scan as jrglru_scan
@@ -122,7 +123,8 @@ def test_rglru_state_chains_across_calls():
 
 
 def test_rglru_scan_has_no_kernel_off_cuda():
-    a, x, _ = (None if t is None else t.to("meta")
+    """On neither the CPU nor the card nor meta (``_off_card``)."""
+    a, x, _ = (None if t is None else off_card(t)
                for t in _t(_rglru_inputs(1, 4, 8, False)))
     with pytest.raises(ValueError, match="no kernel"):
         rglru_scan(a, x)

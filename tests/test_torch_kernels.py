@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from _off_card import off_card
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import decode_attention as tdecode
@@ -384,11 +385,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 def test_non_cpu_tensor_without_kernel_raises():
-    q = torch.empty(1, 4, 2, 32, device="meta")
-    with pytest.raises(ValueError):
+    """A tensor on neither the CPU nor the card (a fake XLA tensor) has no
+    kernel and no plain version: both entry points raise. A meta tensor
+    gets the kernels' output shapes instead (tests/test_torch_dryrun.py)."""
+    q = off_card(torch.zeros(1, 4, 2, 32))
+    with pytest.raises(ValueError, match="no kernel for xla"):
         ops.attention(q, q, q)
-    with pytest.raises(ValueError):
-        ops.decode_attention(q[:, 0], q, q, torch.empty(1, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for xla"):
+        ops.decode_attention(q[:, 0], q, q, off_card(torch.ones(1)))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):

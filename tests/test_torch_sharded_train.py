@@ -238,17 +238,12 @@ def test_run_with_model_par_2_trains_and_resumes(world2):
     assert shapes["seg0.0.0.mix.wk.w"] == (cfg.d_model, cfg.n_kv * cfg.hd)
 
 
-@pytest.mark.parametrize("flag", ["zero3"])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        ShardCtx(**{flag: True})
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b",
                                   "seamless-m4t-medium"])
 def test_tensor_parallel_of_uncovered_families_raises(arch):
-    """SSM, hybrid and encoder-decoder models refuse a model axis of more
-    than one rank (they run data parallel)."""
+    """Hybrid and encoder-decoder models refuse a model axis of more than
+    one rank (they run data parallel; an SSM model runs on one,
+    tests/test_torch_zero3.py)."""
     with pytest.raises(NotImplementedError, match="next slice"):
         build_model(SMOKES[arch], device="cpu",
                     ctx=ShardCtx(mesh=ranks.fake_mesh(1, 2)))

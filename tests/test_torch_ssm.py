@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _off_card import off_card
 from repro.configs import SMOKES as JSMOKES
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_chunked as jssd_chunked
@@ -133,7 +134,8 @@ def test_ssd_state_chains_across_calls():
 
 
 def test_ssd_chunked_has_no_kernel_off_cuda():
-    x, B, C, dt, A, D, _ = (t.to("meta") if t is not None else None
+    """On neither the CPU nor the card nor meta (``_off_card``)."""
+    x, B, C, dt, A, D, _ = (off_card(t) if t is not None else None
                             for t in _t(_ssd_inputs(1, 4, 2, 32, 16, False)))
     with pytest.raises(ValueError, match="no kernel"):
         ssd_chunked(x, B, C, dt, A, D)

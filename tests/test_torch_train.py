@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _off_card import off_card
 from repro.configs import SMOKES as JSMOKES
 from repro.launch.train import synthetic_batch as jsynthetic_batch
 from repro.models.lm import build_model as jbuild
@@ -404,8 +405,10 @@ def test_train_loss_decreases():
 
 # ------------------------------------------------------ scans on the card
 def _meta(*shape):
-    """A tensor that stands where a CUDA tensor would (not on the CPU)."""
-    return torch.empty(*shape, device="meta")
+    """A tensor that stands where a CUDA tensor would, on neither the CPU
+    nor the card nor the meta device (whose tensors get the kernels'
+    output shapes): ``_off_card.off_card``."""
+    return off_card(torch.zeros(*shape))
 
 
 def test_scans_have_no_kernel_off_the_card():
