@@ -142,8 +142,20 @@ Phases, in order; any failure exits non-zero before a result is printed:
      and resident state, beside the dry run's estimate with and without
      zero3); 6m: mamba2-1.3b at depth 2 in float32 on a model axis of 2,
      logits, greedy tokens, the loss and every gradient held to one rank,
-     the SSD kernels launched on each rank. Any rank's failure fails the
-     phase;
+     the SSD kernels launched on each rank; 6k's rows at 6r's per-rank
+     shapes (4r: ``rglru_scan`` over a rank's 2048 channels; 1br: the
+     windowed flash kernel at 8 query heads over 1; 2bs: the decode
+     kernel's partial mode on 1024 of the ring's 2048 slots; 2xs: the
+     cross-attention decode's partial mode on 32 of 64 source positions;
+     merge-rg: ``attn_merge`` at D=256); 6r: tensor parallelism of RG-LRU
+     and of the encoder-decoder at (1, 2) in float32, recurrentgemma-9b at
+     full width cut to one (rec, rec, attn) unit over 2 prompts of 2112
+     tokens and seamless-m4t-medium at full width and depth over 64 source
+     frames, each without and with ``kv_seq_shard`` (the ring split 1024 /
+     1024, the cross K/V 32 / 32): logits within 1e-3 of one rank and the
+     greedy tokens equal, the loss and every logical gradient within 1e-3,
+     each rank's launches, peak memory and bytes sent a step. Any rank's
+     failure fails the phase;
   7. the dry run against the card — ``launch.dryrun``'s estimate of a
      rank's peak memory (its inputs and the most its step holds beyond
      them, on the meta device) beside the card's: phase 5's cell and
@@ -155,6 +167,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -1016,13 +1029,42 @@ def serve_counted(model, reqs, kernels, capacity=1024, shapes=None):
     return launches, res, steps
 
 
+#: one device-side row of a profiled run: a kernel's or a copy's name, its
+#: device time in microseconds and its calls (``FunctionEventAvg``'s names)
+DeviceRow = collections.namedtuple(
+    "DeviceRow", ["key", "self_device_time_total", "count"])
+
+
+def device_rows(prof, spans=()):
+    """What ``prof.key_averages()`` gives of a ``torch.profiler`` run's
+    device side, summed straight from ``prof.events()``: key_averages also
+    totals every host event's times through its children, ~20 s on a
+    serve run's events (3a and 3b on the H100). Returns the ``DeviceRow``
+    of each name run on the device with a positive device time, the
+    ``spans`` left out, and each span's (a ``record_function`` range on
+    the host) [device time of the kernels launched in it, calls]."""
+    from torch.autograd import DeviceType
+    dev, spanned = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.key not in spans:
+            acc = dev.setdefault(e.key, [0.0, 0])
+            acc[0] += e.self_device_time_total
+        elif e.device_type == DeviceType.CPU and e.key in spans:
+            acc = spanned.setdefault(e.key, [0.0, 0])
+            acc[0] += e.device_time_total
+        else:
+            continue
+        acc[1] += 1
+    return ([DeviceRow(k, t, n) for k, (t, n) in dev.items() if t > 0],
+            spanned)
+
+
 def serve_profiled(model, reqs, capacity=1024, spans=None):
     """Run 2 (warm) and run 3 (warm, under ``torch.profiler``): device busy
     time, the idle share and the top kernels by device time. ``spans`` maps
     a label to (module, function name): in run 3 each such function runs
     inside a ``record_function`` range of that label, and the device time
     of the kernels launched in it is printed."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     spans = spans or {}
@@ -1038,9 +1080,12 @@ def serve_profiled(model, reqs, capacity=1024, spans=None):
         return run
     for label, (mod, fn) in spans.items():
         setattr(mod, fn, spanned(label))
+    # the host's events only where a span needs them: turning a serve
+    # run's ~10^5 of them into FunctionEvents took ~15 s (3a on the H100)
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if spans else [])
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             _, _, traced = serve_once(model, reqs, capacity)
     finally:
         for label, (mod, fn) in spans.items():
@@ -1048,10 +1093,7 @@ def serve_profiled(model, reqs, capacity=1024, spans=None):
     # device-side events only (kernels, copies); the operator rows above
     # them would count the same device time twice, and so would the
     # device-side rows of the spans
-    averages = prof.key_averages()
-    rows = [e for e in averages
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and e.key not in spans]
+    rows, spanned = device_rows(prof, spans)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     # the same requests do the same device work in every run; the profiler
     # slows the host, so the idle share is taken against run 2's wall time
@@ -1062,12 +1104,10 @@ def serve_profiled(model, reqs, capacity=1024, spans=None):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
             f"{e.count:6d} calls  {e.key[:90]}")
-    for e in averages:
-        if e.key in spans and e.device_type == DeviceType.CPU:
-            ms = e.device_time_total / 1e3
-            log(f"  span {e.key}: {e.count} calls, device time of its "
-                f"kernels {ms:.2f} ms, {ms / 1e3 / busy:.3f} of device busy "
-                f"time")
+    for label, (us, calls) in spanned.items():
+        ms = us / 1e3
+        log(f"  span {label}: {calls} calls, device time of its kernels "
+            f"{ms:.2f} ms, {ms / 1e3 / busy:.3f} of device busy time")
     return rows, busy
 
 
@@ -1499,15 +1539,11 @@ def decode_timed(model, caches, tok, pos, steps=5):
 def profile_step(label, fn):
     """One call of ``fn`` under ``torch.profiler``: its device time and the
     top kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows, _ = device_rows(prof)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     log(f"  {label}: device time {busy:.3f} ms; top kernels:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
@@ -1992,7 +2028,6 @@ def profile_train_step(step_fn, state, batch, tokens, reps=5,
     caller's reset, device busy time and idle share, the top kernels and the
     device shares of ``groups`` of kernels, the GEMMs and the ``optimizer``
     span. Returns the state after the steps."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.training import trainer
@@ -2022,9 +2057,7 @@ def profile_train_step(step_fn, state, batch, tokens, reps=5,
             torch.cuda.synchronize()
     finally:
         trainer.adamw_update = inner
-    averages = prof.key_averages()
-    rows = [e for e in averages if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and e.key != "optimizer"]
+    rows, spanned = device_rows(prof, ("optimizer",))
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     log(f"  one warm step traced: device busy {busy * 1e3:.2f} ms | idle "
         f"share {1 - busy / (ms / 1e3):.3f} of the untraced step's "
@@ -2033,12 +2066,11 @@ def profile_train_step(step_fn, state, batch, tokens, reps=5,
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
             f"{e.count:6d} calls  {e.key[:90]}")
     device_shares(rows, busy, list(groups) + [GEMM_GROUP])
-    for e in averages:
-        if e.key == "optimizer" and e.device_type == DeviceType.CPU:
-            opt_ms = e.device_time_total / 1e3
-            log(f"  span optimizer (adamw_update): device time of its "
-                f"kernels {opt_ms:.2f} ms, {opt_ms / 1e3 / busy:.3f} of "
-                f"device busy time")
+    for us, _ in spanned.values():
+        opt_ms = us / 1e3
+        log(f"  span optimizer (adamw_update): device time of its "
+            f"kernels {opt_ms:.2f} ms, {opt_ms / 1e3 / busy:.3f} of "
+            f"device busy time")
     return state
 
 
@@ -2246,31 +2278,25 @@ def _seeded(cfg, dtype, dev, ctx=None):
                        generator=torch.Generator(dev).manual_seed(0))
 
 
-def _grow(caches, extra):
-    """Prefill caches with ``extra`` more positions (K/V or MLA latents,
-    dim 2 of each leaf) to decode into."""
-    import torch.nn.functional as F
-    return [[{"mix": {k: F.pad(v, (0, 0) * (v.dim() - 3) + (0, extra))
-                      for k, v in lay["mix"].items()}} for lay in seg]
-            for seg in caches]
-
-
 @torch.no_grad()
-def _decode(model, tokens, steps, feed=None, seq=False):
-    """Prefill ``tokens`` [B, T] (numpy), then ``steps`` decode steps fed the
-    greedy picks or ``feed`` [B, steps]. Returns the real vocab's logits of
-    each call (float32, on the host) and the picks [B, steps + 1]. With
-    ``seq`` the prefill's caches are handed to decode as a logical decode
-    cache (every real KV head, ``join_kv_heads``) cut into the rank's slots
-    (``shard_cache``: all of them unless ``kv_seq_shard``), the Stage-3
-    hand-over of the sequence-sharded layout."""
-    from repro_torch.launch.shardings import join_kv_heads, shard_cache
+def _decode(model, tokens, steps, feed=None, src=None):
+    """Prefill ``tokens`` [B, T] (numpy; over the source embeddings ``src``
+    where given), then ``steps`` decode steps fed the greedy picks or
+    ``feed`` [B, steps]. Returns the real vocab's logits of each call
+    (float32, on the host) and the picks [B, steps + 1]. The prefill's
+    caches are handed to a decode cache of ``steps`` more slots
+    (``launch.shardings.decode_cache``: a window rolled into its ring;
+    with ``kv_seq_shard`` every real KV head over the rank's slots, the
+    Stage-3 hand-over of the sequence-sharded layout)."""
+    from repro_torch.launch.shardings import decode_cache
     dev, vocab = model.device, model.cfg.vocab
     toks = torch.as_tensor(tokens, device=dev)
-    lg, caches = model.prefill({"tokens": toks})
-    caches = _grow(caches, steps)
-    if seq:
-        caches = shard_cache(join_kv_heads(caches, model), model.ctx)
+    batch = {"tokens": toks}
+    if src is not None:
+        batch["src_embeds"] = src
+    lg, caches = model.prefill(batch)
+    T = toks.shape[1]
+    caches = decode_cache(caches, model, T, T + steps)
     outs, picks = [lg], [lg[:, 0, :vocab].argmax(-1)]
     for s in range(steps):
         tok = (picks[-1][:, None] if feed is None else
@@ -2788,6 +2814,39 @@ def phase_mesh_kernels_seq():
     return rows, rows["merge-2q8s-m2"]
 
 
+def phase_mesh_kernels_tp():
+    """6k's rows at 6r's per-rank shapes (tensor parallelism of RG-LRU and
+    of the encoder-decoder at a model axis of 2): 4r, ``rglru_scan`` over a
+    rank's 2048 of recurrentgemma-9b's 4096 channels at B=1 x 2112 (with
+    an initial state, after CUDA-graph replays too); 1br, the windowed
+    flash kernel at a rank's 8 of the 16 query heads over the one KV head,
+    D=256, T=S=2112, window 2048; 2bs, the decode kernel's partial mode on
+    a rank's 1024 of the ring's 2048 slots (B=8, D=256, 16 over 1; the ring
+    full on most rows, two rows that see none of rank 1's slots); 2xs,
+    seamless's cross-attention decode in the partial mode over a rank's 32
+    of 64 source positions (B=8, D=64, 16 MHA heads, every length 32);
+    merge-rg, ``attn_merge`` of the 2 ranks' partials at D=256 into a
+    rank's 8 heads of 8 rows. Each held to its plain version and timed as
+    phase 2's rows."""
+    log("[6k] the kernels at 6r's per-rank shapes: RG-LRU's channel "
+        "blocks, the windowed ring and the cross K/V split over 2 ranks")
+    bf = torch.bfloat16
+    mqa = [0] * 16
+    ring = [2048, 2048, 1500, 2048, 1024, 2048, 17, 2048]
+    return {
+        "4r": rglru_case("6r rank: 2048 of 4096 channels", 1, 2112, 2048),
+        "1br": flash_case("6r rank: recurrentgemma 8 over 1, D=256, window "
+                          "2048", bf, 2112, 2112, 256, window=2048, H=8,
+                          kv_heads=1, kv_map=[0] * 8),
+        "2bs": partial_case("2bs recurrentgemma ring 16 over 1", bf, 8, 16,
+                            256, 2048, 2, 1, mqa, ring)[0],
+        "2xs": partial_case("2xs seamless cross 16 MHA", bf, 8, 16, 64, 64,
+                            2, 16, list(range(16)), [64] * 8)[0],
+        "merge-rg": merge_case("6r recurrentgemma ring", 2, 8 * 16 // 2,
+                               256, bf),
+    }
+
+
 def phase_mesh_nccl(card):
     """6.0: NCCL at world size 1, mesh (1, 1), in a process of its own:
     full-width smollm-360m's bf16 prefill logits and greedy tokens bitwise
@@ -3092,7 +3151,7 @@ def p6_seq_dense_rank(rank, dev, cfg, prompts, steps):
     _reset(dev)
     model = _seeded(dataclasses.replace(cfg, n_layers=2), torch.float32,
                     dev, ctx)
-    logits, picks = _decode(model, prompts, steps, seq=True)
+    logits, picks = _decode(model, prompts, steps)
     out["logits"] = [x.numpy() for x in logits]
     out["picks"] = picks.numpy()
     out["launches"] = {n: fn.launches for n, fn in wrappers.items()}
@@ -3129,10 +3188,6 @@ def p6_seq_mla_rank(rank, dev, cfg2, prompts, steps, grads_bt, cfg4,
     its own and the largest difference over each leaf's largest value is
     taken; then ``cfg4`` (depth 4, the MoE layer under classic EP) in bf16,
     ``prompts4`` prefilled and decoded both ways, a warm step timed."""
-    from repro_torch.launch import train as launch
-    from repro_torch.launch.shardings import (gather_to_root, grad_sum_axes,
-                                              model_splits, shard_batch)
-    from repro_torch.training.trainer import sync_grads
     _p6_setup()
     ctx = _p6_ctx(2)
     out = {"rank": rank}
@@ -3143,43 +3198,17 @@ def p6_seq_mla_rank(rank, dev, cfg2, prompts, steps, grads_bt, cfg4,
         for fn in wrappers.values():
             fn.launches = 0
         ctx.stats.zero()
-        logits, picks = _decode(model, prompts, steps, seq=True)
+        logits, picks = _decode(model, prompts, steps)
         out[seq] = {"logits": [x.numpy() for x in logits],
                     "picks": picks.numpy(),
                     "launches": {n: fn.launches
                                  for n, fn in wrappers.items()},
                     "seq_bytes": ctx.stats.seq_bytes // steps}
     ctx.kv_seq_shard = False
-    B, T = grads_bt
-    model.requires_grad_(True)
-    batch = launch.synthetic_batch(cfg2, B, T, seed=0, step=0, device=dev)
-    loss = model.loss(shard_batch(batch, ctx))
-    loss.backward()
-    shards = model_splits(model)
-    grads = sync_grads({n: p.grad for n, p in model.named_parameters()},
-                       {n: grad_sum_axes(n, sp, cfg2, ctx)
-                        for n, sp in shards.items()}, ctx)
-    out["loss"] = float(loss.detach())
-    got = {n: gather_to_root(g, shards[n], ctx) for n, g in grads.items()}
-    del model, grads, loss
-    torch.cuda.empty_cache()
-    if rank == 0:
-        ref = _seeded(cfg2, torch.float32, dev)
-        ref.requires_grad_(True)
-        loss = ref.loss(batch)
-        loss.backward()
-        out["ref_loss"] = float(loss.detach())
-        worst, worst_name = 0.0, None
-        for n, p in ref.named_parameters():
-            want = p.grad.float()
-            d = float((got[n].to(dev) - want).abs().max()) / float(
-                want.abs().max())
-            if d > worst:
-                worst, worst_name = d, n
-        out["grad_worst"], out["grad_worst_name"] = worst, worst_name
-        out["n_grads"] = len(got)
-        del ref, loss
-    del got
+    res, got, batch = _sharded_grads(dev, model, cfg2, *grads_bt)
+    del model
+    out.update(_vs_one_rank(dev, cfg2, batch, got, res))
+    del got, batch
     torch.cuda.empty_cache()
     _reset(dev)
     model = _seeded(cfg4, torch.bfloat16, dev, ctx)
@@ -3192,7 +3221,7 @@ def p6_seq_mla_rank(rank, dev, cfg2, prompts, steps, grads_bt, cfg4,
         ctx.stats.zero()
         _sync(dev)
         t0 = time.perf_counter()
-        logits, picks = _decode(model, prompts4, steps, seq=True)
+        logits, picks = _decode(model, prompts4, steps)
         _sync(dev)
         out[("bf16", seq)] = {
             "logits": [x.numpy() for x in logits], "picks": picks.numpy(),
@@ -3200,6 +3229,65 @@ def p6_seq_mla_rank(rank, dev, cfg2, prompts, steps, grads_bt, cfg4,
             "seq_bytes": ctx.stats.seq_bytes // steps,
             "serve_s": time.perf_counter() - t0}
     out["peak4"] = _peak(dev)
+    return out
+
+
+def _sharded_grads(dev, model, cfg, B, T, wrappers=()):
+    """The loss and every gradient of the rank's shard ``model`` (float32,
+    its mesh's ``ctx``) on the launcher's batch (B, T), the gradients
+    summed as the trainer sums them (``sync_grads``) and gathered to rank 0
+    leaf by leaf (``gather_to_root``: host copies, no whole model through
+    a queue); ``model``'s gradients are freed. Returns (the loss, the
+    launches of each of ``wrappers`` by name and the rank's peak memory;
+    the gathered gradients, None off rank 0; the batch), for
+    ``_vs_one_rank`` once the caller has freed ``model``."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.shardings import (gather_to_root, grad_sum_axes,
+                                              model_splits, shard_batch)
+    from repro_torch.training.trainer import sync_grads
+    ctx = model.ctx
+    model.requires_grad_(True)
+    batch = launch.synthetic_batch(cfg, B, T, seed=0, step=0, device=dev)
+    loss = model.loss(shard_batch(batch, ctx))
+    loss.backward()
+    shards = model_splits(model)
+    grads = sync_grads({n: p.grad for n, p in model.named_parameters()},
+                       {n: grad_sum_axes(n, sp, cfg, ctx)
+                        for n, sp in shards.items()}, ctx)
+    out = {"loss": float(loss.detach()), "peak": _peak(dev),
+           "launches": {n: fn.launches for n, fn in dict(wrappers).items()}}
+    got = {n: gather_to_root(g, shards[n], ctx) for n, g in grads.items()}
+    del grads, loss
+    model.requires_grad_(False)
+    for p in model.parameters():
+        p.grad = None
+    return out, (got if ctx.mesh.rank == 0 else None), batch
+
+
+def _vs_one_rank(dev, cfg, batch, got, out):
+    """On rank 0 (``got`` the gathered gradients; nothing elsewhere), the
+    unsharded model's loss and gradients on the same card and batch, and
+    each leaf's largest difference over its largest value: ``out`` with
+    the unsharded loss, the worst leaf and the count of gradients."""
+    gc_cuda()
+    if got is None:
+        return out
+    ref = _seeded(cfg, torch.float32, dev)
+    ref.requires_grad_(True)
+    loss = ref.loss(batch)
+    loss.backward()
+    out["ref_loss"] = float(loss.detach())
+    worst, worst_name = 0.0, None
+    for n, p in ref.named_parameters():
+        want = p.grad.float()
+        d = float((got[n].to(dev) - want).abs().max()) / float(
+            want.abs().max())
+        if d > worst:
+            worst, worst_name = d, n
+    out["grad_worst"], out["grad_worst_name"] = worst, worst_name
+    out["n_grads"] = len(got)
+    del ref, loss
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3481,23 +3569,6 @@ def dry_estimate(arch, B, T, mesh_shape, remat, cfg=None, **changes):
             rec["memory_analysis"]["temp_size_in_bytes"] / 1e9)
 
 
-@torch.no_grad()
-def _ssm_decode(model, tokens, steps):
-    """``_decode`` for a model whose caches are states (nothing to grow):
-    prefill ``tokens``, then ``steps`` greedy decode steps."""
-    dev, vocab = model.device, model.cfg.vocab
-    toks = torch.as_tensor(tokens, device=dev)
-    lg, caches = model.prefill({"tokens": toks})
-    outs, picks = [lg], [lg[:, 0, :vocab].argmax(-1)]
-    for s in range(steps):
-        lg, caches = model.decode_step(caches, picks[-1][:, None],
-                                       toks.shape[1] + s)
-        outs.append(lg)
-        picks.append(lg[:, 0, :vocab].argmax(-1))
-    return ([o[..., :vocab].float().cpu() for o in outs],
-            torch.stack(picks, 1).cpu())
-
-
 def _mamba2_rank(rank, dev, cfg, prompts):
     """6m on its rank: ``cfg`` (mamba2-1.3b at depth 2) in float32 on a
     (1, 2) mesh, its mixers whole on both ranks, its vocab split: prefill
@@ -3512,7 +3583,7 @@ def _mamba2_rank(rank, dev, cfg, prompts):
     ctx = _p6_ctx(2)
     ssd_scan.ssd_chunked.launches = ssd_scan.ssd_chunked_bwd.launches = 0
     model = _seeded(cfg, torch.float32, dev, ctx)
-    logits, picks = _ssm_decode(model, prompts, M2_STEPS)
+    logits, picks = _decode(model, prompts, M2_STEPS)
     model.requires_grad_(True)
     batch = launch.synthetic_batch(cfg, *M2_BT, seed=0, step=0, device=dev)
     loss = model.loss(shard_batch(batch, ctx))
@@ -3540,7 +3611,7 @@ def _mamba2_reference(cfg, prompts):
     gradients (on the host)."""
     from repro_torch.launch import train as launch
     model = _seeded(cfg, torch.float32, "cuda")
-    logits, picks = _ssm_decode(model, prompts, M2_STEPS)
+    logits, picks = _decode(model, prompts, M2_STEPS)
     model.requires_grad_(True)
     loss = model.loss(launch.synthetic_batch(cfg, *M2_BT, seed=0, step=0,
                                              device="cuda"))
@@ -3675,6 +3746,174 @@ def phase_mesh_mamba2(card, res, want):
     for r in res:
         assert all(v > 0 for v in r["launches"].values()), r
     assert not summed, summed
+
+
+#: 6r: recurrentgemma-9b at full width cut to one (rec, rec, attn) unit,
+#: float32, 2 prompts of 2112 tokens (past its 2048 window) and the
+#: gradients' batch B=1 x 2112; seamless-m4t-medium at full width and
+#: depth, float32, 2 prompts of 256 tokens over 64 source frames (the
+#: launcher's frames for 256 tokens) and the gradients' batch B=1 x 256;
+#: the greedy steps of both
+TP_RG_DEPTH, TP_RG_T, TP_SM_T, TP_STEPS = 3, 2112, 256, 4
+
+
+def _tp_wrappers():
+    from repro_torch.kernels import attn_split as sp
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru
+    return {"flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention,
+            "attn_merge": sp.attn_merge, "rglru_scan": rglru.rglru_scan,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "rglru_scan_bwd": rglru.rglru_scan_bwd}
+
+
+def p6_tp_rank(rank, dev, jobs):
+    """6r on its rank at (1, 2): for each (label, config, prompts, source
+    frames or None, gradients' (B, T)) of ``jobs``, the rank's shard in
+    float32, a prefill and ``TP_STEPS`` greedy steps without and then with
+    ``kv_seq_shard`` (the flag is read at each decode call), each run's
+    launches of each kernel, bytes exchanged a step and peak memory; then
+    the loss and every gradient against the unsharded model on rank 0
+    (``_sharded_grads``, then ``_vs_one_rank`` once the shard is freed),
+    with the backward kernels' launches."""
+    _p6_setup()
+    ctx = _p6_ctx(2)
+    wrappers = _tp_wrappers()
+    out = {"rank": rank}
+    for label, cfg, prompts, src, bt in jobs:
+        src = None if src is None else torch.as_tensor(src, device=dev)
+        _reset(dev)
+        model = _seeded(cfg, torch.float32, dev, ctx)
+        for seq in (False, True):
+            ctx.kv_seq_shard = seq
+            for fn in wrappers.values():
+                fn.launches = 0
+            ctx.stats.zero()
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, picks = _decode(model, prompts, TP_STEPS, src=src)
+            _sync(dev)
+            out[(label, seq)] = {
+                "logits": [x.numpy() for x in logits],
+                "picks": picks.numpy(), "serve_s": time.perf_counter() - t0,
+                "launches": {n: fn.launches for n, fn in wrappers.items()},
+                "seq_bytes": ctx.stats.seq_bytes // TP_STEPS,
+                "peak": _peak(dev)}
+        ctx.kv_seq_shard = False
+        for fn in wrappers.values():
+            fn.launches = 0
+        _reset(dev)
+        res, got, batch = _sharded_grads(dev, model, cfg, *bt, wrappers)
+        del model
+        out[(label, "grads")] = _vs_one_rank(dev, cfg, batch, got, res)
+        del got, batch
+        gc_cuda()
+    return out
+
+
+def phase_mesh_tp(card):
+    """6r: tensor parallelism of RG-LRU and of the encoder-decoder at
+    (1, 2), both ranks on the one card over gloo. recurrentgemma-9b at full
+    width cut to ``TP_RG_DEPTH`` layers (one (rec, rec, attn) unit), float32:
+    2 prompts of ``TP_RG_T`` tokens prefilled and ``TP_STEPS`` greedy steps,
+    without ``kv_seq_shard`` (a rank's 2048 channels of each RG-LRU block,
+    its 8 of the 16 query heads over the one KV head, the whole ring) and
+    with it (the ring's 2048 slots split 1024 / 1024, the partials merged by
+    ``attn_merge``), logits within 1e-3 of the largest logit of the
+    single-rank card run and the tokens equal; the loss and every logical
+    gradient at B=1 x ``TP_RG_T`` within 1e-3 (of each leaf's largest
+    value). seamless-m4t-medium at full width and depth, float32, the same
+    checks over 64 source frames (the cross K/V split 32 / 32 with the
+    flag). Each rank's peak memory, launches of each kernel and bytes sent
+    a step are printed; each run must launch the kernels of its path on
+    both ranks."""
+    import dataclasses
+    import tempfile
+    from repro_torch.launch.train import synthetic_batch
+    rg = dataclasses.replace(_arch("recurrentgemma-9b"),
+                             n_layers=TP_RG_DEPTH)
+    sm = _arch("seamless-m4t-medium")
+    rng = np.random.default_rng(26)
+    rg_prompts = rng.integers(0, rg.vocab, (2, TP_RG_T))
+    sm_prompts = rng.integers(0, sm.vocab, (2, TP_SM_T))
+    sm_src = synthetic_batch(sm, 2, TP_SM_T, seed=1, step=0,
+                             device="cpu")["src_embeds"].float().numpy()
+    jobs = [("recurrentgemma-9b", rg, rg_prompts, None, (1, TP_RG_T)),
+            ("seamless-m4t-medium", sm, sm_prompts, sm_src, (1, TP_SM_T))]
+    log(f"[6r] mesh (1, 2): tensor parallelism of RG-LRU and of the "
+        f"encoder-decoder, float32, 2 ranks on one card ({card}), gloo "
+        f"through host memory: recurrentgemma-9b full width, depth "
+        f"{TP_RG_DEPTH}, 2 x {TP_RG_T} tokens; seamless-m4t-medium full "
+        f"width and depth, 2 x {TP_SM_T} tokens over {sm_src.shape[1]} "
+        f"source frames; {TP_STEPS} greedy steps, without and with "
+        "kv_seq_shard")
+    want = {}
+    for label, cfg, prompts, src, _ in jobs:
+        model = _seeded(cfg, torch.float32, "cuda")
+        want[label] = _decode(model, prompts, TP_STEPS,
+                              src=None if src is None
+                              else torch.as_tensor(src, device="cuda"))
+        del model
+        gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall = _mesh_spawn(p6_tp_rank, 2, (jobs,), tmp, "pg-tp")
+    log(f"  2 ranks in {wall:.1f} s")
+    r0 = res[0]
+    expect = {
+        ("recurrentgemma-9b", False): ("flash_attention", "decode_attention",
+                                       "rglru_scan"),
+        ("recurrentgemma-9b", True): ("flash_attention", "decode_attention",
+                                      "rglru_scan", "attn_merge"),
+        ("recurrentgemma-9b", "grads"): ("flash_attention",
+                                         "flash_attention_bwd", "rglru_scan",
+                                         "rglru_scan_bwd"),
+        ("seamless-m4t-medium", False): ("flash_attention",
+                                         "decode_attention"),
+        ("seamless-m4t-medium", True): ("flash_attention",
+                                        "decode_attention", "attn_merge"),
+        ("seamless-m4t-medium", "grads"): ("flash_attention",
+                                           "flash_attention_bwd")}
+    for label, _, _, _, bt in jobs:
+        wl, wp = want[label]
+        for seq in (False, True):
+            got = r0[(label, seq)]
+            rel = _rel(got["logits"], [x.numpy() for x in wl])
+            same = np.array_equal(got["picks"], wp.numpy())
+            log(f"  {label} (1, 2){', kv_seq_shard' if seq else ''}: "
+                f"logits relative difference {rel:.3e} (tol 1e-3), greedy "
+                f"tokens equal: {same}; {got['serve_s']:.2f} s on rank 0; "
+                f"sent a step by each rank "
+                f"{[r[(label, seq)]['seq_bytes'] for r in res]} B; peak "
+                f"memory a rank "
+                f"{['%.2f GB' % r[(label, seq)]['peak'] for r in res]}; "
+                f"launches a rank "
+                f"{[r[(label, seq)]['launches'] for r in res]}")
+            if not (rel <= 1e-3 and same):
+                raise SystemExit(f"6r: {label} under TP disagrees with one "
+                                 "rank")
+        g = r0[(label, "grads")]
+        rel_loss = abs(g["loss"] - g["ref_loss"]) / abs(g["ref_loss"])
+        log(f"  {label} (1, 2), B={bt[0]} x {bt[1]}: loss {g['loss']:.6f} "
+            f"vs {g['ref_loss']:.6f} (relative {rel_loss:.2e}, tol 1e-3); "
+            f"{g['n_grads']} logical gradients, the largest difference "
+            f"over the leaf's largest value {g['grad_worst']:.3e} "
+            f"({g['grad_worst_name']}; tol 1e-3); peak memory a rank "
+            f"through its backward "
+            f"{['%.2f GB' % r[(label, 'grads')]['peak'] for r in res]}; "
+            f"launches a rank "
+            f"{[r[(label, 'grads')]['launches'] for r in res]}")
+        if not (rel_loss <= 1e-3 and g["grad_worst"] <= 1e-3):
+            raise SystemExit(f"6r: {label}'s sharded gradients disagree")
+        for key, names in expect.items():
+            if key[0] != label:
+                continue
+            for r in res:
+                missing = [n for n in names if not r[key]["launches"][n]]
+                if missing:
+                    raise SystemExit(f"6r: {key} launched no {missing} on "
+                                     f"rank {r['rank']}")
 
 
 def phase_dry_vs_card(card, z3_peak, z3_est):
@@ -3848,6 +4087,10 @@ def main() -> int:
     # run's memory estimate against the card's
     z3_peak, z3_est, m2, m2want = run_phase("6z", phase_mesh_zero3, card)
     run_phase("6m", phase_mesh_mamba2, card, m2, m2want)
+    # tensor parallelism of RG-LRU and of the encoder-decoder: the kernels
+    # at a rank's shapes, then both families at (1, 2)
+    run_phase("6k", phase_mesh_kernels_tp)
+    run_phase("6r", phase_mesh_tp, card)
     run_phase("7", phase_dry_vs_card, card, z3_peak, z3_est)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

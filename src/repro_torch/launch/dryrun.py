@@ -10,8 +10,7 @@ wrapper returns its outputs' shapes, ``kernels.meta``), and each
 collective records its call. Per cell this records, under the JAX dry
 run's field names where a counterpart exists:
   * ``status``: ``ok``, ``skip`` (with the ``reason``) or ``fail`` (with
-    the ``error``; a family whose tensor parallelism is not ported fails
-    naming it);
+    the ``error``);
   * ``model_flops`` (6ND for train, 2ND for prefill, 2N a token for
     decode, as JAX's);
   * ``cost_analysis.flops``: the step's operations counted with the

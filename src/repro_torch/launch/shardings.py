@@ -21,27 +21,32 @@ under ``ShardCtx.zero3``, its ``z3`` split of another dim:
     "model") is whole over "model";
   * a dim the axes do not divide stays whole (``ShardCtx.split``, the JAX
     package's ``_guarded``).
-One difference: a GQA/MQA model's ``wk``/``wv`` stay whole over "model",
-since its KV heads are (``blocks.AttnDims``; under ZeRO-3 they are split
-over the zero3 axes by their input dim); the JAX package shards the
-weight over "model" and gathers it at use. A rank whose query heads read
-only some of those KV heads has a partial gradient for them, summed over
-"model" (``grad_sum_axes``), as is the router's when the experts are
-sharded and that of MLA's whole projections and norms (``_MLA_WHOLE``)
-under TP. RG-LRU and encoder-decoder models take their placement but do
-not build at a model axis above one rank (``models.lm._refuse_tp``).
+Two differences from the JAX package, both documented (ROADMAP queue 3):
+  * a GQA/MQA model's ``wk``/``wv`` stay whole over "model", since its KV
+    heads are (``blocks.AttnDims``; under ZeRO-3 they are split over the
+    zero3 axes by their input dim); the JAX package shards the weight over
+    "model" and gathers it at use;
+  * an RG-LRU block's decode caches (``conv`` [B, W-1, w], ``state``
+    [B, w]) hold the rank's channels, as its parameters do; JAX's
+    ``cache_pspec`` keeps state leaves whole over "model", which would
+    cost the port an all-gather a decode step for the same logical values.
+A rank whose query heads read only some of those KV heads has a partial
+gradient for them, summed over "model" (``grad_sum_axes``), as is the
+router's when the experts are sharded, that of MLA's whole projections
+and norms (``_MLA_WHOLE``) under TP and that of an RG-LRU block's conv
+taps, whole over "model", of which a rank reads its columns.
 
 ``Model`` builds each parameter at its shard's shape with its ``Split`` as
 the parameter's ``shard`` (``models.lm.Model``); ``shard_state`` and
 ``gather_state`` take those (``model_splits``).
 
 Decode caches (JAX's ``cache_pspec``): with ``ShardCtx.kv_seq_shard`` a
-token leaf (``k``, ``v``, ``c``, ``kr``: ``[count, B, S, ...]``) holds the
-rank's block of the slots and every real KV head; ``shard_cache`` cuts a
-logical cache (every real KV head, every slot; ``join_kv_heads`` makes
-one of a prefill's caches) into it, ``gather_cache`` joins it back. That
-is the Stage-3 hand-over of a prefill's KV to a sequence-sharded decode:
-each rank receives only its slots.
+token leaf (``k``, ``v``, ``c``, ``kr``, and the cross K/V ``xk``, ``xv``:
+``[count, B, S, ...]``) holds the rank's block of the slots and every real
+KV head. ``decode_cache`` is the Stage-3 hand-over of a rank's prefill
+caches to its decode cache (each rank keeps only its slots);
+``gather_cache`` joins the ranks' caches into the logical one (every
+slot, every RG-LRU channel).
 """
 from __future__ import annotations
 
@@ -49,13 +54,16 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ..models.lm import plan_segments
 from ..models.sharding import (ShardCtx, Split, Splits, all_gather,
                                gather_to_first, shard_tensor, slot_block,
                                splits_of)
+from ..serving.engine import admit_leaf
+from ..serving.paged_kv import is_token_leaf_path, tree_map_with_path
 
 __all__ = ["param_placement", "grad_sum_axes", "model_splits",
            "shard_state", "gather_state", "gather_to_root", "shard_batch",
-           "shard_cache", "gather_cache", "join_kv_heads"]
+           "gather_cache", "join_kv_heads", "decode_cache"]
 
 #: weight-dict parents whose 'w' has its OUTPUT dim split over "model"
 _OUT_TP = {"wq", "wk", "wv", "wq_b", "wk_b", "wv_b", "wi", "wg", "unembed",
@@ -71,8 +79,11 @@ _KV = {"wk", "wv"}
 #: MLA's replicated projections and norms, which feed every head: a rank's
 #: heads give a partial gradient of them under TP
 _MLA_WHOLE = {"wq_a", "q_norm", "wkv_a", "kv_norm"}
-#: decode-cache leaves indexed by token ([count, B, S, ...])
-_TOKEN = ("k", "v", "c", "kr")
+#: an RG-LRU block's leaves whole over "model" of which a rank reads its
+#: channels' columns: a partial gradient under TP
+_RGLRU_WHOLE = {"conv"}
+#: the cross K/V's cache leaves, indexed by source position
+_CROSS = ("xk", "xv")
 
 
 def _kv_sharded(cfg) -> bool:
@@ -129,8 +140,9 @@ def grad_sum_axes(name: str, split: Splits, cfg,
     those it is split over (a ZeRO-3 gradient arrives reduce-scattered
     over them, ``sharding.gather_param``), and "model" for a parameter
     whole there that only the rank's share of the work reaches (GQA
-    ``wk``/``wv`` and MLA's ``_MLA_WHOLE`` under TP, the router under
-    EP)."""
+    ``wk``/``wv``, MLA's ``_MLA_WHOLE`` and an RG-LRU block's conv taps
+    under TP, the router under EP). The conv taps are told from the SSM
+    mixer's, which every rank reads whole, by their layer's kind."""
     if ctx.mesh is None:
         return ()
     own = {a for s in splits_of(split) for a in s.axes}
@@ -139,11 +151,22 @@ def grad_sum_axes(name: str, split: Splits, cfg,
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
     partial = ((parent in _KV and not _kv_sharded(cfg)) or
                parent in _MLA_WHOLE or
+               (leaf in _RGLRU_WHOLE and _layer_kind(name, cfg) == "rec") or
                (leaf == "router" and ctx.ep_size > 1
                 and cfg.n_experts % ctx.ep_size == 0))
     if partial and ctx.model_axis not in own:
         axes.append(ctx.model_axis)
     return tuple(a for a in ctx.mesh.names if a in axes and ctx.size(a) > 1)
+
+
+def _layer_kind(name: str, cfg) -> Optional[str]:
+    """The mixer kind of the decoder layer that owns the parameter ``name``
+    (``seg{si}.{block}.{sublayer}...``, ``models.lm.plan_segments``); None
+    for any other parameter."""
+    parts = name.split(".")
+    if not parts[0].startswith("seg") or len(parts) < 3:
+        return None
+    return plan_segments(cfg)[int(parts[0][3:])].kinds[int(parts[2])][0]
 
 
 def model_splits(model) -> Dict[str, Tuple[Split, ...]]:
@@ -214,51 +237,85 @@ def shard_batch(batch: Mapping[str, torch.Tensor], ctx: Optional[ShardCtx]
     return out
 
 
-def _map_cache(fn, caches):
-    """``fn(name, leaf)`` over the leaves of a model's caches (a list per
-    segment, a list per sublayer, ``{"mix": {...}}`` entries)."""
-    return [[{k: ({n: fn(n, t) for n, t in e.items()} if isinstance(e, dict)
-                  else fn(k, e)) for k, e in entry.items()}
-             for entry in seg] for seg in caches]
+def _map_cache(fn, caches, model):
+    """``fn(name, leaf, kind)`` over the leaves of ``model``'s caches (a
+    list per segment, a list per sublayer, ``{"mix": {...}}`` entries with
+    the cross K/V beside), ``kind`` the mixer kind of the leaf's layer
+    (``Segment.kinds``)."""
+    return [[{k: ({n: fn(n, t, kind) for n, t in e.items()}
+                  if isinstance(e, dict) else fn(k, e, kind))
+              for k, e in entry.items()}
+             for (kind, _, _), entry in zip(seg.kinds, entries)]
+            for seg, entries in zip(model.segments, caches)]
 
 
-def shard_cache(logical, ctx: ShardCtx):
-    """The rank's blocks of a logical decode cache under ``kv_seq_shard``:
-    each token leaf ``[count, B, S, ...]`` cut to the rank's ``slot_block``
-    of its S slots (a copy: the logical cache can be freed), state leaves
-    kept whole. The model axis must divide S."""
-    def leaf(name, t):
-        if name not in _TOKEN:
-            return t
-        lo, n = slot_block(ctx, t.shape[2])
-        return t[:, :, lo:lo + n].clone()
-    return _map_cache(leaf, logical)
+def _slotted(name: str) -> bool:
+    """A leaf split over "model" by its slots under ``kv_seq_shard``: a
+    token leaf (``serving.paged_kv.is_token_leaf_path``) or the cross
+    K/V, over the source positions."""
+    return is_token_leaf_path((name,)) or name in _CROSS
 
 
-def gather_cache(local, ctx: ShardCtx):
-    """The logical decode cache of every rank's ``shard_cache`` blocks: the
-    token leaves joined over "model" along their slots (a collective:
-    every rank calls it, in the same order)."""
-    def leaf(name, t):
-        if name not in _TOKEN or not ctx.seq_sharded:
-            return t
-        return all_gather(t, ctx, ctx.model_axis, 2)
-    return _map_cache(leaf, local)
+def gather_cache(local, model):
+    """The logical decode cache of every rank's blocks of ``model``'s
+    caches: the slotted leaves joined over "model" along their slots under
+    ``kv_seq_shard``, an RG-LRU block's leaves along their channels (a
+    collective: every rank calls it, in the same order)."""
+    ctx = model.ctx
+
+    def leaf(name, t, kind):
+        if _slotted(name) and ctx.seq_sharded:
+            return all_gather(t, ctx, ctx.model_axis, 2)
+        if kind == "rec":
+            return all_gather(t, ctx, ctx.model_axis, t.dim() - 1)
+        return t
+    return _map_cache(leaf, local, model)
 
 
 def join_kv_heads(caches, model):
-    """A prefill's caches with every real KV head, as a decode cache stores
-    them: a model whose KV heads are split over "model" (MHA under TP) has
-    its blocks gathered (a collective), and a padded MHA model's padded
-    heads are cropped."""
+    """A prefill's caches with every real KV head, as a sequence-sharded
+    decode cache stores them: a model whose KV heads are split over "model"
+    (MHA under TP) has its blocks of self- and cross-attention K/V
+    gathered (a collective), and a padded MHA model's padded heads are
+    cropped."""
     ctx, n_kv = model.ctx, model.cfg.n_kv
-    split = any(n.endswith("mix.wk.w") and getattr(p, "shard", None)
-                for n, p in model.named_parameters())
 
-    def leaf(name, t):
-        if name not in ("k", "v"):
+    def leaf(name, t, kind):
+        if name not in ("k", "v") + _CROSS:
             return t
-        if split:
+        if model.kv_split:
             t = all_gather(t, ctx, ctx.model_axis, 3)
         return t[:, :, :, :n_kv]
-    return _map_cache(leaf, caches)
+    return _map_cache(leaf, caches, model)
+
+
+def decode_cache(caches, model, n_tokens: int, capacity: int):
+    """A rank's prefill caches of ``n_tokens`` positions (its rows of one
+    prompt length) handed over as its part of a decode cache of
+    ``capacity`` slots (``DecodeBatch.add``'s admission, a rank's share):
+      1. under ``kv_seq_shard``, every real KV head (``join_kv_heads``;
+         without it the rank decodes over its own heads);
+      2. each token leaf of a layer's ``"mix"`` as ``serving.engine.
+         admit_leaf`` holds it: a local layer's window-cropped prefill
+         rolled into its ring's order, grown to its slots;
+      3. under ``kv_seq_shard``, each slotted leaf (the cross K/V's over
+         the source positions among them) cut to the rank's
+         ``slot_block``: a copy, so the prefill's caches can be freed.
+    State leaves stay as the prefill left them: an SSM's whole, an RG-LRU
+    block's the rank's channels. Raises where a leaf holds more positions
+    than its slots, or the model axis does not divide them."""
+    ctx = model.ctx
+    if ctx.seq_sharded:
+        caches = join_kv_heads(caches, model)
+    caches = tree_map_with_path(
+        lambda path, t: admit_leaf(model, path, t, n_tokens, capacity),
+        caches)
+    if not ctx.seq_sharded:
+        return caches
+
+    def slots(name, t, kind):
+        if not _slotted(name):
+            return t
+        lo, n = slot_block(ctx, t.shape[2])
+        return t[:, :, lo:lo + n].clone()
+    return _map_cache(slots, caches, model)

@@ -34,13 +34,15 @@ for decode; under expert parallelism the dispatch and combine over
 (``_moe_replicated``).
 
 Under tensor parallelism (``models.sharding``, a rank's shard of each
-parameter) attention and MLA run the rank's block of the query heads with
-``wo`` row-parallel and the SwiGLU its block of ``d_ff``; cross-attention
-is built only where the model axis has one rank (``lm._refuse_tp``). With
+parameter) attention, cross-attention and MLA run the rank's block of the
+query heads with ``wo`` row-parallel, the SwiGLU its block of ``d_ff`` and
+RG-LRU its block of the channels (``w_out_rg`` row-parallel). With
 ``ShardCtx.kv_seq_shard`` a decode cache is sequence-sharded over the
 model axis (``_seq_write``, ``_seq_merge``): each rank holds every real KV
-head (MLA: the latent) over its block of slots, attends with every query
-head over them and merges its own heads' partials with the other ranks'.
+head (MLA: the latent) over its block of slots (a local layer's: of its
+ring; cross-attention's: of the source positions), attends with every
+query head over them and merges its own heads' partials with the other
+ranks'.
 """
 from __future__ import annotations
 
@@ -60,12 +62,12 @@ from .layers import (Dense, RMSNorm, SwiGLU, apply_rope, logical_shape,
                      normal_, rmsnorm, rope)
 from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_to_all, copy_to,
                        exchange, gather_from, gather_partial, pad_to_multiple,
-                       reduce_from, scatter_to, slot_block)
+                       reduce_from, scatter_to, shard_tensor, slot_block)
 
 __all__ = ["AttnDims", "Attention", "attn_init", "attn_apply", "cross_apply",
            "MLA", "mla_init", "mla_apply", "ffn_init", "ffn_apply", "MoE",
            "moe_init", "moe_apply", "SSD", "ssd_init", "ssd_apply", "RGLRU",
-           "rglru_init", "rglru_apply"]
+           "rglru_init", "rglru_apply", "rglru_blocks"]
 
 
 # ------------------------------------------------------------- int8 KV cache
@@ -296,15 +298,16 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
 
 # ------------------------------------------ sequence-sharded decode caches
 def _seq_write(leaf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
-               lo: int, S: int) -> None:
+               lo: int, S: int, ring: bool = False) -> None:
     """Write row b's ``new[b]`` into the rank's block ``leaf`` [B, n, ...]
     of an ``S``-slot cache at slot ``min(pos[b], S - 1)`` (a position past
-    the capacity clamped to the last slot, as without the sharding) where
-    that slot is the rank's (``[lo, lo + n)``); other rows keep theirs. No
-    host read: each row rewrites a slot of its block, with its old value
-    where the slot is not its."""
+    the capacity clamped to the last slot, as without the sharding), or of
+    a local layer's ring (``ring``) at slot ``pos[b] % S``, where that slot
+    is the rank's (``[lo, lo + n)``); other rows keep theirs. No host read:
+    each row rewrites a slot of its block, with its old value where the
+    slot is not its."""
     B, n = leaf.shape[0], leaf.shape[1]
-    slot = pos.clamp(max=S - 1) - lo
+    slot = (pos % S if ring else pos.clamp(max=S - 1)) - lo
     mine = ((slot >= 0) & (slot < n)).reshape(B, *([1] * (new.dim() - 1)))
     rows = torch.arange(B, device=leaf.device)
     slot = slot.clamp(0, n - 1)
@@ -346,15 +349,16 @@ def _attn_decode_seq(p: Attention, q: torch.Tensor, k: torch.Tensor,
     the rank holds every real KV head over its block of slots
     (``slot_block``). The new token's K/V of every real KV head (an MHA
     model's ranks gather their blocks of heads, in the one gather of q) go
-    to the rank that owns the slot; the rank gathers q of every padded
-    query head, runs the decode kernel's partial mode over its slots
-    through the whole q->kv map (``kv_map_all``) and merges its own heads'
-    partials with the other ranks' (``_seq_merge``). Returns [B, 1, h, hd]
-    for the rank's h query heads, in q's dtype."""
+    to the rank that owns the slot: ``min(pos, S - 1)``, or a local layer's
+    ring slot ``pos % S`` (``attn_apply``: its slots are all valid once
+    ``pos + 1 >= S`` and the first ``pos + 1`` before, so the lengths are
+    the same in both cases, JAX's windowed decode under its sequence
+    ``kv_spec``). The rank gathers q of every padded query head, runs the
+    decode kernel's partial mode over its slots through the whole q->kv
+    map (``kv_map_all``) and merges its own heads' partials with the other
+    ranks' (``_seq_merge``). Returns [B, 1, h, hd] for the rank's h query
+    heads, in q's dtype."""
     ctx = p.tp
-    if window:
-        raise ValueError("a windowed ring under a sequence-sharded cache is "
-                         "not ported (its model's TP is ROADMAP queue 1 #8)")
     ck, cv = cache["k"], cache["v"]                    # [B, S/m, n_store, hd]
     n_store = ck.shape[2]
     S = ck.shape[1] * ctx.model_size
@@ -365,8 +369,9 @@ def _attn_decode_seq(p: Attention, q: torch.Tensor, k: torch.Tensor,
                                    ctx).split(hd, -1)
     else:
         q1, k1, v1 = _gather_heads(q[:, 0], ctx), k[:, 0], v[:, 0]
-    _seq_write(ck, _kv_store(k1[:, :n_store], ck.dtype), pos, lo, S)
-    _seq_write(cv, _kv_store(v1[:, :n_store], cv.dtype), pos, lo, S)
+    ring = bool(window)
+    _seq_write(ck, _kv_store(k1[:, :n_store], ck.dtype), pos, lo, S, ring)
+    _seq_write(cv, _kv_store(v1[:, :n_store], cv.dtype), pos, lo, S, ring)
     lengths = ((pos + 1).clamp(max=S) - lo).clamp(0, n)
     kv_scale = 1.0 / _KV_QSCALE if ck.dtype == torch.int8 else None
     o, lse = kops.decode_attention(q1, ck, cv, lengths, kv_map=p.kv_map_all,
@@ -388,24 +393,61 @@ def cross_apply(p: Attention, x: torch.Tensor, *, cfg: ArchConfig,
     sequence over all S keys: the decode kernel with every length at S,
     which splits S over the SMs and reads each K/V row once per head group;
     the flash kernel at T = 1 would fill one of its 64 query rows a
-    block."""
+    block.
+
+    Under tensor parallelism (``p.tp``) the rank runs its block of the
+    query heads over its KV heads, as ``attn_apply``: x and ``memory``
+    enter through ``copy_to`` (so the decoder's and the encoder's
+    gradients are summed over the model axis) and ``wo``'s partial
+    products are summed. With ``kv_seq_shard`` decode runs
+    ``_cross_decode_seq`` over cross K/V split by source position."""
     B, T, _ = x.shape
-    dims = AttnDims.of(cfg)
-    q = p.wq(x).reshape(B, T, dims.n_q, dims.hd)
+    hd = AttnDims.of(cfg).hd
+    n_q, n_kv = p.wq.w.shape[1] // hd, p.wk.w.shape[1] // hd   # the rank's
+    tp = p.tp
+    if tp is not None:
+        x = copy_to(x, tp, tp.model_axis)
+    q = p.wq(x).reshape(B, T, n_q, hd)
     if cache is not None and "xk" in cache:
         k, v = cache["xk"], cache["xv"]
     else:
         S = memory.shape[1]
-        k = p.wk(memory).reshape(B, S, dims.n_kv, dims.hd)
-        v = p.wv(memory).reshape(B, S, dims.n_kv, dims.hd)
-    if mode == "decode":
+        if tp is not None:
+            memory = copy_to(memory, tp, tp.model_axis)
+        k = p.wk(memory).reshape(B, S, n_kv, hd)
+        v = p.wv(memory).reshape(B, S, n_kv, hd)
+    if mode == "decode" and tp is not None and tp.seq_sharded:
+        out = _cross_decode_seq(p, q, k, v)
+    elif mode == "decode":
         lengths = torch.full((B,), k.shape[1], dtype=torch.int32,
                              device=x.device)
         out = kops.decode_attention(q[:, 0], k, v, lengths,
                                     kv_map=p.kv_map)[:, None]
     else:
         out = _attend(p, q, k, v, causal=False)
-    return p.wo(out.reshape(B, T, dims.n_q * dims.hd)), k, v
+    y = p.wo(out.reshape(B, T, n_q * hd))
+    if tp is not None:
+        y = reduce_from(y, tp, tp.model_axis)
+    return y, k, v
+
+
+def _cross_decode_seq(p: Attention, q: torch.Tensor, xk: torch.Tensor,
+                      xv: torch.Tensor) -> torch.Tensor:
+    """Cross-attention decode over cross K/V split by source position
+    (JAX's ``cache_pspec`` token layout of ``xk``/``xv``): the rank holds
+    every real KV head over its block of the source positions, all of them
+    valid. It gathers q of every padded query head, runs the decode
+    kernel's partial mode with every length at its block's size through
+    the whole q->kv map and merges its own heads' partials with the other
+    ranks' (``_seq_merge``); nothing is written. Returns [B, 1, h, hd] for
+    the rank's h query heads, in q's dtype."""
+    ctx = p.tp
+    q1 = _gather_heads(q[:, 0], ctx)
+    lengths = torch.full((xk.shape[0],), xk.shape[1], dtype=torch.int32,
+                         device=xk.device)
+    o, lse = kops.decode_attention(q1, xk, xv, lengths, kv_map=p.kv_map_all,
+                                   partial=True)
+    return _seq_merge(o, lse, ctx, q.dtype)[:, None]
 
 
 # ------------------------------------------------ MLA (DeepSeek-V3 attention)
@@ -978,13 +1020,18 @@ class RGLRU(nn.Module):
     pytree: branch and gate projections ``w_x``/``w_gate_branch``
     ``[d, w]``, the temporal conv taps ``[ssm_conv, w]``, the block-diagonal
     gates ``gate_in``/``gate_rec`` ``[nb, w/nb, w/nb]``, the per-channel
-    decay ``a_param`` (float32 in any model dtype) and ``w_out_rg``."""
+    decay ``a_param`` (float32 in any model dtype) and ``w_out_rg``.
+
+    Under tensor parallelism (``localize``) the projections, the gates and
+    the decay hold the rank's block of the channels (whole gate blocks) and
+    ``w_out_rg`` its rows; the conv taps stay whole (JAX's placement) and
+    the rank reads its columns, from ``cols`` on."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
         super().__init__()
         d = cfg.d_model
         w = cfg.rglru_width or d
-        nb = _RGLRU_BLOCKS if w % _RGLRU_BLOCKS == 0 else 1
+        nb = rglru_blocks(cfg)
         kb = w // nb
         self.w_x = Dense(d, w, dtype=dtype, device=device)
         self.w_gate_branch = Dense(d, w, dtype=dtype, device=device)
@@ -997,22 +1044,44 @@ class RGLRU(nn.Module):
         self.gate_rec = param((nb, kb, kb))
         self.a_param = param((w,), torch.float32)
         self.w_out_rg = Dense(w, d, dtype=dtype, device=device)
+        self.tp: Optional[ShardCtx] = None     # set by localize under TP
+        self.cols = 0                          # the rank's first channel
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         """The JAX init: N(0, 1/d_in) projections, N(0, 0.2^2) conv taps,
         N(0, 1/kb) gates, and Lambda = linspace(0.9, 0.999, w) as
-        ``a_param = log(expm1(Lambda^(1/c)))``."""
+        ``a_param = log(expm1(Lambda^(1/c)))`` (a rank's shard: its block
+        of the whole width's)."""
         self.w_x.init(generator)
         self.w_gate_branch.init(generator)
         normal_(self.conv, generator, 0.2)
         kb = self.gate_in.shape[1]
         normal_(self.gate_in, generator, kb ** -0.5)
         normal_(self.gate_rec, generator, kb ** -0.5)
-        lam = torch.linspace(0.9, 0.999, self.a_param.numel(),
+        lam = torch.linspace(0.9, 0.999, logical_shape(self.a_param)[0],
                              dtype=torch.float32)
-        self.a_param.copy_(torch.log(torch.expm1(lam ** (1.0 / _RGLRU_C))))
+        self.a_param.copy_(shard_tensor(
+            torch.log(torch.expm1(lam ** (1.0 / _RGLRU_C))),
+            getattr(self.a_param, "shard", None)))
         self.w_out_rg.init(generator)
+
+    def localize(self, ctx: ShardCtx) -> None:
+        """After the parameters took their shards (``Model``): the rank
+        runs its block of the channels where they are split
+        (``lm._refuse_tp`` has checked that the model axis divides the gate
+        blocks)."""
+        split = getattr(self.a_param, "shard", None)
+        if split is not None:
+            self.tp = ctx
+            self.cols = split.index * self.a_param.shape[0]
+
+
+def rglru_blocks(cfg: ArchConfig) -> int:
+    """The block-diagonal gates' block count: 16 where they divide the
+    width, else one."""
+    w = cfg.rglru_width or cfg.d_model
+    return _RGLRU_BLOCKS if w % _RGLRU_BLOCKS == 0 else 1
 
 
 def rglru_init(cfg: ArchConfig, *, dtype=torch.bfloat16, device=None) -> RGLRU:
@@ -1032,11 +1101,20 @@ def rglru_apply(p: RGLRU, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     the input scale ``beta = sqrt(1 - a^2)`` feed the recurrence, whose
     float32 output, cast to the model dtype, is gated by ``gelu`` (tanh
     form, as ``jax.nn.gelu``) of the gate branch.
-    """
+
+    Under tensor parallelism (``p.tp``, ``RGLRU.localize``) every size is
+    the rank's: its ``w / m`` channels through its columns of the conv
+    taps, its gate blocks and its recurrence, its cache ``conv [B, W-1,
+    w/m]`` and ``state [B, w/m]``; x enters through ``copy_to`` and
+    ``w_out_rg``'s partial products are summed over the model axis (JAX's
+    ``("batch", None, "model")`` constraints on the branch, the conv output
+    and the gates)."""
     B, T, _ = x.shape
-    w = p.a_param.numel()
+    w = p.a_param.numel()                                       # the rank's
+    if p.tp is not None:
+        x = copy_to(x, p.tp, p.tp.model_axis)
     gate_branch = F.gelu(p.w_gate_branch(x), approximate="tanh")
-    xt, new_conv = _causal_conv(p.w_x(x), p.conv,
+    xt, new_conv = _causal_conv(p.w_x(x), p.conv[:, p.cols:p.cols + w],
                                 None if cache is None else cache["conv"])
     nb, kb = p.gate_rec.shape[0], p.gate_rec.shape[1]
     xtb = xt.to(x.dtype).reshape(B, T, nb, kb)
@@ -1050,6 +1128,8 @@ def rglru_apply(p: RGLRU, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     h, state = kops.rglru(a, beta * (xt * it),
                           None if cache is None else cache["state"])
     y = p.w_out_rg(h.to(x.dtype) * gate_branch)
+    if p.tp is not None:
+        y = reduce_from(y, p.tp, p.tp.model_axis)
     if mode == "decode":
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(state)

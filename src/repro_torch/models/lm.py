@@ -26,8 +26,9 @@ Parameters are built with ``requires_grad=False`` and serving runs under
 
 ``build_model(cfg, ctx=ShardCtx(mesh=...))`` builds a rank's shard of the
 model (see ``Model``): the batch a call takes is the rank's rows, its
-caches the rank's heads (with ``kv_seq_shard``, a decode cache every real
-KV head over the rank's block of slots), its logits the whole vocab's.
+caches the rank's heads and RG-LRU channels (with ``kv_seq_shard``, a
+decode cache every real KV head over the rank's block of slots), its
+logits the whole vocab's.
 
 The cache keeps the JAX nesting: a list per segment, a list per sublayer,
 then ``{"mix": {...}}`` with a leading ``count`` axis: ``{"k", "v"}`` of
@@ -57,10 +58,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .blocks import (MLA, Attention, AttnDims, attn_apply, attn_init,
+from .blocks import (MLA, RGLRU, Attention, AttnDims, attn_apply, attn_init,
                      cross_apply, ffn_apply, ffn_init, mla_apply, mla_init,
-                     moe_apply, moe_init, rglru_apply, rglru_init, ssd_apply,
-                     ssd_init)
+                     moe_apply, moe_init, rglru_apply, rglru_blocks,
+                     rglru_init, ssd_apply, ssd_init)
 from .layers import Dense, RMSNorm, normal_, softmax_xent, xent_terms
 from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_reduce, copy_to,
                        gather_param, pad_to_multiple, reduce_from,
@@ -218,8 +219,8 @@ class Model(nn.Module):
     ``prefill`` and ``decode_step`` gather the logits), the batch the rank's
     rows, the loss the mean over the whole batch of every data rank. An SSM
     model's mixers run whole on every rank of "model" (its vocab split
-    there); hybrid and encoder-decoder models run data parallel only (one
-    rank on "model").
+    there); an RG-LRU block runs the rank's block of its channels, and an
+    encoder-decoder's encoder and cross-attention the rank's heads.
 
     Under ZeRO-3 (``ctx.zero3``) a parameter is also split over the zero3
     axes (its ``z3``), and each layer (the embedding, the unembedding and
@@ -269,6 +270,7 @@ class Model(nn.Module):
                 cfg, _mixer_kind(cfg, last), 0, cfg.is_moe_layer(last),
                 dtype=dtype, device=device, ctx=ctx)])
         self.kv_heads = cfg.n_kv         # KV heads a decode cache stores
+        self.kv_split = False            # MHA heads split over "model"
         if sharded:
             self._localize(final_device)
 
@@ -276,7 +278,7 @@ class Model(nn.Module):
         """Replace each (meta) parameter by the rank's shard on ``device``,
         its ``Split`` as the parameter's ``shard``; each attention layer
         takes its heads' block of the q->kv map, each MLA layer its block
-        of the heads."""
+        of the heads, each RG-LRU block its block of the channels."""
         from ..launch.shardings import param_placement   # launch imports us
         for name, p in list(self.named_parameters()):
             split, z3 = param_placement(name, tuple(p.shape), self.cfg,
@@ -295,7 +297,8 @@ class Model(nn.Module):
                 m.localize(self.ctx)
                 if getattr(m.wk.w, "shard", None) is not None:
                     self.kv_heads = m.wk.w.shape[1] // self.cfg.hd
-            elif isinstance(m, MLA):
+                    self.kv_split = True
+            elif isinstance(m, (MLA, RGLRU)):
                 m.localize(self.ctx)
 
     @property
@@ -598,11 +601,16 @@ class Model(nn.Module):
         the conv window with new values unscaled, its MLA attends over the
         latent codes, its cross-attention over the K/V codes).
 
+        Under tensor parallelism an MHA model's K/V (and cross K/V) hold
+        the rank's heads, and an RG-LRU block's ``conv``/``state`` the
+        rank's channels (JAX's ``cache_pspec`` keeps them whole over
+        "model": the port's documented difference, ``launch.shardings``).
         With ``kv_seq_shard`` over more than one rank, the token leaves
-        (``k``, ``v``, ``c``, ``kr``) are the rank's block of the
-        ``max_len`` slots (``sharding.slot_block``; the ranks must divide
-        it) and attention's hold every real KV head; state leaves stay
-        whole (JAX's ``cache_pspec``)."""
+        (``k``, ``v``, ``c``, ``kr``, ``xk``, ``xv``) are the rank's block
+        of their slots (``sharding.slot_block``: of ``max_len``, of a local
+        layer's ring of ``min(max_len, window)``, of ``src_len``; the ranks
+        must divide each) and attention's hold every real KV head; the SSM
+        state leaves stay whole."""
         kv_dtype = kv_dtype or self.dtype
         if kv_dtype == torch.int8:
             bad = sorted({kind for seg in self.segments
@@ -619,11 +627,14 @@ class Model(nn.Module):
 
     def _segment_cache(self, seg: Segment, batch_size: int, max_len: int,
                        kv_dtype: torch.dtype, src_len: int):
-        cfg = self.cfg
+        cfg, ctx = self.cfg, self.ctx
         dims = AttnDims.of(cfg)
-        kv_heads, slots = self.kv_heads, max_len
-        if self.ctx.seq_sharded:
-            kv_heads, slots = cfg.n_kv, slot_block(self.ctx, max_len)[1]
+        seq = ctx.seq_sharded
+        kv_heads = cfg.n_kv if seq else self.kv_heads
+        x_heads = dims.n_kv // ctx.model_size if self.kv_split else dims.n_kv
+
+        def slots(S):
+            return slot_block(ctx, S)[1] if seq else S
 
         def zeros(shape, dtype=self.dtype):
             return torch.zeros((seg.count, batch_size) + shape, dtype=dtype,
@@ -636,31 +647,35 @@ class Model(nn.Module):
                 entry = {"mix": {
                     "conv": zeros((cfg.ssm_conv - 1, d_in + 2 * N)),
                     "state": zeros((H, cfg.ssm_head_dim, N), torch.float32)}}
-            elif kind == "rec":
-                w = cfg.rglru_width or cfg.d_model
+            elif kind == "rec":       # the rank's channels (_refuse_tp)
+                w = (cfg.rglru_width or cfg.d_model) // ctx.model_size
                 entry = {"mix": {"conv": zeros((cfg.ssm_conv - 1, w)),
                                  "state": zeros((w,), torch.float32)}}
             elif kind == "mla":
                 entry = {"mix": {
-                    "c": zeros((slots, cfg.kv_lora_rank), kv_dtype),
-                    "kr": zeros((slots, cfg.rope_head_dim), kv_dtype)}}
+                    "c": zeros((slots(max_len), cfg.kv_lora_rank), kv_dtype),
+                    "kr": zeros((slots(max_len), cfg.rope_head_dim),
+                                kv_dtype)}}
             else:
-                S = min(max_len, window) if window else slots
+                S = slots(min(max_len, window) if window else max_len)
                 entry = {"mix": {n: zeros((S, kv_heads, dims.hd),
                                           kv_dtype) for n in ("k", "v")}}
             if cfg.enc_layers and src_len:
+                shape = ((slots(src_len), cfg.n_kv, dims.hd) if seq
+                         else (src_len, x_heads, dims.hd))
                 for n in ("xk", "xv"):
-                    entry[n] = zeros((src_len, dims.n_kv, dims.hd), kv_dtype)
+                    entry[n] = zeros(shape, kv_dtype)
             return entry
 
         return [one(kind, window) for kind, _, window in seg.kinds]
 
 
 def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
-    """Tensor parallelism covers the dense and MoE families (MLA among
-    them, where the model axis divides its heads) and the SSM, whose mixer
-    runs whole on every rank of "model" (the JAX package's placement); the
-    RG-LRU and encoder-decoder models raise rather than run replicated."""
+    """Tensor parallelism covers every family, as the JAX package's
+    placement: attention's heads (MLA's where the model axis divides them),
+    the SwiGLU's width, the experts, RG-LRU's channels by whole gate blocks
+    and the SSM, whose mixer runs whole on every rank of "model". Raises
+    where the model axis cannot split what a rank must hold."""
     m = ctx.model_size
     if m == 1:
         return
@@ -672,15 +687,9 @@ def _refuse_tp(cfg: ArchConfig, ctx: ShardCtx) -> None:
         raise ValueError(f"{cfg.name}: {m} ranks on the model axis do not "
                          f"divide MLA's {cfg.n_heads} heads (JAX pads no "
                          "MLA head)")
-    for what, bad in (("an RG-LRU block (its windowed ring sequence-"
-                       "sharded)", bool(cfg.block_pattern)),
-                      ("an encoder-decoder (its cross K/V sequence-"
-                       "sharded)", cfg.enc_layers > 0)):
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism of {what} is the next "
-                f"slice (ROADMAP queue 1 #8.5); run it with model_par=1 "
-                "(data parallel)")
+    if "rec" in cfg.block_pattern and rglru_blocks(cfg) % m:
+        raise ValueError(f"{cfg.name}: {m} ranks on the model axis do not "
+                         f"divide RG-LRU's {rglru_blocks(cfg)} gate blocks")
 
 
 def build_model(cfg: ArchConfig, *, device=None, dtype=torch.bfloat16,

@@ -23,7 +23,41 @@ import torch
 from ..models.lm import Model
 from .paged_kv import is_token_leaf_path, tree_map_with_path
 
-__all__ = ["ServingEngine", "DecodeBatch"]
+__all__ = ["ServingEngine", "DecodeBatch", "leaf_slots", "admit_leaf"]
+
+
+def _window(model: Model, path) -> int:
+    """The local-attention window of the sublayer owning the cache leaf at
+    ``path`` ((segment, sublayer, ...)); 0 for a full layer."""
+    return model.segments[path[0]].kinds[path[1]][2]
+
+
+def leaf_slots(model: Model, path, capacity: int) -> int:
+    """The slots a decode cache of ``capacity`` gives the token leaf at
+    ``path``: ``min(capacity, window)`` for a local-attention layer's
+    ring, ``capacity`` for a full layer."""
+    window = _window(model, path)
+    return min(capacity, window) if window else capacity
+
+
+def admit_leaf(model: Model, path, leaf: torch.Tensor, n_tokens: int,
+               capacity: int) -> torch.Tensor:
+    """A prefill's cache leaf ``[count, B, ...]`` of ``n_tokens`` positions
+    as a decode cache of ``capacity`` slots holds it: a token leaf
+    (``is_token_leaf_path``) over its ``leaf_slots`` S, a window-cropped
+    one (positions [n_tokens - S, n_tokens) at [0, S)) rolled into the
+    ring order that decode writes in (position p at slot ``p % S``), then
+    zeros after its positions; a state leaf as it is. Raises where a token
+    leaf holds more positions than its slots."""
+    if not is_token_leaf_path(path):
+        return leaf
+    n, S = leaf.shape[2], leaf_slots(model, path, capacity)
+    if n > S:
+        raise ValueError("sequence longer than decode capacity")
+    if _window(model, path) and n == S and n_tokens > S:
+        leaf = torch.roll(leaf, (n_tokens - S) % S, dims=2)
+    return torch.nn.functional.pad(leaf, (0, 0) * (leaf.dim() - 3)
+                                   + (0, S - n))
 
 
 class ServingEngine:
@@ -75,15 +109,6 @@ class DecodeBatch:
         self._tok = np.zeros((max_slots,), np.int64)
         self._pos = np.zeros((max_slots,), np.int64)
 
-    def _leaf_window(self, path) -> int:
-        """Local-attention window of the sublayer owning this cache leaf
-        (0 = full); paths are (segment, sublayer, "mix", leaf)."""
-        return self.model.segments[path[0]].kinds[path[1]][2]
-
-    def _leaf_capacity(self, path) -> int:
-        w = self._leaf_window(path)
-        return min(self.capacity, w) if w else self.capacity
-
     def _build(self, example_cache: Any) -> None:
         def empty(path, leaf):
             # [count, 1, S, ...] token leaf -> [count, n, leaf capacity, ...]
@@ -91,7 +116,7 @@ class DecodeBatch:
             shp = list(leaf.shape)
             shp[1] = self.max_slots
             if is_token_leaf_path(path):
-                shp[2] = self._leaf_capacity(path)
+                shp[2] = leaf_slots(self.model, path, self.capacity)
             return torch.zeros(shp, dtype=leaf.dtype, device=leaf.device)
         self._stacked = tree_map_with_path(empty, example_cache)
 
@@ -106,20 +131,8 @@ class DecodeBatch:
         slot = self._free.pop()
 
         def write(path, big, small):
-            x = small[:, 0]                     # [count, S, ...] / [count, ...]
-            if is_token_leaf_path(path):
-                n, cap = x.shape[1], big.shape[2]
-                if self._leaf_window(path) and n == cap and n_tokens > cap:
-                    # a window-cropped leaf holds positions [n_tokens - cap,
-                    # n_tokens) at [0, cap): roll it into the ring order
-                    # (position p at slot p % cap) that decode writes in
-                    x = torch.roll(x, (n_tokens - cap) % cap, dims=1)
-                if n > cap:
-                    raise ValueError("sequence longer than decode capacity")
-                big[:, slot, :n] = x
-                big[:, slot, n:] = 0
-            else:
-                big[:, slot] = x
+            big[:, slot] = admit_leaf(self.model, path, small, n_tokens,
+                                      self.capacity)[:, 0]
             return big
 
         tree_map_with_path(write, self._stacked, cache)

@@ -10,12 +10,13 @@ import torch.distributed as dist
 
 from repro_torch.configs import SMOKES
 from repro_torch.launch.mesh import Mesh, make_mesh_for
-from repro_torch.launch.shardings import (gather_cache, gather_state,
-                                          grad_sum_axes, join_kv_heads,
-                                          model_splits, shard_batch,
-                                          shard_cache)
+from repro_torch.launch.shardings import (decode_cache, gather_cache,
+                                          gather_state, grad_sum_axes,
+                                          model_splits, shard_batch)
 from repro_torch.models import blocks, build_model, from_jax_params
 from repro_torch.models.sharding import ShardCtx, all_gather
+from repro_torch.serving.paged_kv import (is_token_leaf_path,
+                                          tree_map_with_path)
 from repro_torch.training.trainer import sync_grads
 
 
@@ -61,17 +62,19 @@ def _rows(t, ctx, split):
 
 def logical_caches(caches, model, split_rows):
     """The caches of every rank joined into the logical caches: batch rows
-    over "data" (dim 1), a split model's KV heads over "model" (dim 3)."""
+    over "data" (dim 1), a split model's KV heads (self- and cross-
+    attention's) over "model" (dim 3), an RG-LRU block's channels over
+    "model" (its last dim)."""
     ctx = model.ctx
-    kv_split = model.kv_heads != model.cfg.n_kv
 
-    def leaf(t):
+    def leaf(path, t):
         t = all_gather(t, ctx, ctx.batch_axes, 1) if split_rows else t
-        if kv_split and t.dim() == 5:
+        if model.kv_split and path[-1] in ("k", "v", "xk", "xv"):
             t = all_gather(t, ctx, ctx.model_axis, 3)
+        if model.segments[path[0]].kinds[path[1]][0] == "rec":
+            t = all_gather(t, ctx, ctx.model_axis, t.dim() - 1)
         return t.numpy()
-    return [[{"mix": {k: leaf(v) for k, v in lay["mix"].items()}}
-             for lay in seg] for seg in caches]
+    return tree_map_with_path(leaf, caches)
 
 
 def serve_and_grads(rank, dev, model_par, jobs, steps):
@@ -85,24 +88,25 @@ def serve_and_grads(rank, dev, model_par, jobs, steps):
 
 def seq_decode(rank, dev, model_par, jobs, steps):
     """``_seq_decode`` of each (arch, JAX params, prompts, slots, dtype,
-    KV dtype, config changes) of ``jobs`` on one mesh with
-    ``kv_seq_shard``."""
+    KV dtype, config changes[, source embeddings]) of ``jobs`` on one mesh
+    with ``kv_seq_shard``."""
     ctx = _ctx(model_par, kv_seq_shard=True)
-    out = [_seq_decode(ctx, *job, steps) for job in jobs]
+    out = [_seq_decode(ctx, *job[:7], steps, *job[7:]) for job in jobs]
     return out if rank == 0 else None
 
 
 def _seq_decode(ctx, arch, params, prompts, S, dtype, kv_dtype, changes,
-                steps):
+                steps, srcs=None):
     """Each of the rank's rows of ``prompts`` (a list of token arrays of
-    their own lengths, split over "data" where it divides them) prefilled
-    alone, its caches given every real KV head (``join_kv_heads``), grown
-    to ``S`` slots (int8 codes with ``kv_dtype`` "int8") and joined into
-    one logical decode cache, which ``shard_cache`` cuts into the rank's
-    slots; then ``steps`` greedy decode steps at each row's own position.
-    Returns each call's logits, the greedy tokens and the logical cache
-    after the last step (``gather_cache``), over every row, and the bytes
-    a rank sent in the sequence-sharded exchanges a step."""
+    their own lengths, split over "data" where it divides them; with
+    ``srcs`` each over its source embeddings [S_src, d]) prefilled alone
+    and handed to decode (``decode_cache``: every real KV head, a window
+    rolled into its ring, grown to ``S`` slots, the rank's slots), its
+    token leaves stored as int8 codes with ``kv_dtype`` "int8", the rows
+    joined into one decode cache; then ``steps`` greedy decode steps at each row's own
+    position. Returns each call's logits, the greedy tokens and the
+    logical cache after the last step (``gather_cache``), over every row,
+    and the bytes a rank sent in the sequence-sharded exchanges a step."""
     model = _model(arch, params, ctx, getattr(torch, dtype), changes)
     B = len(prompts)
     split = ctx.split(0, ctx.batch_axes, B)
@@ -110,22 +114,19 @@ def _seq_decode(ctx, arch, params, prompts, S, dtype, kv_dtype, changes,
     if split is not None:
         n = B // split.parts
         mine = range(split.index * n, (split.index + 1) * n)
-    logical, firsts = [], []
+    handed, firsts = [], []
     for b in mine:
-        lg, c = model.prefill({"tokens": torch.from_numpy(prompts[b])[None]})
+        batch = {"tokens": torch.from_numpy(prompts[b])[None]}
+        if srcs is not None:
+            batch["src_embeds"] = torch.from_numpy(srcs[b])[None]
+        lg, c = model.prefill(batch)
         firsts.append(lg)
-        logical.append(join_kv_heads(c, model))
-
-    def grown(t):
-        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3)
-                                    + (0, S - t.shape[2]))
-        return blocks._kv_store(t, torch.int8) if kv_dtype == "int8" else t
-    logical = [[{"mix": {n: torch.cat([grown(r[si][i]["mix"][n])
-                                       for r in logical], 1)
-                         for n in entry["mix"]}}
-                for i, entry in enumerate(seg)]
-               for si, seg in enumerate(logical[0])]
-    caches = shard_cache(logical, ctx)
+        c = decode_cache(c, model, len(prompts[b]), S)
+        if kv_dtype == "int8":
+            c = tree_map_with_path(lambda p, t: blocks._kv_store(
+                t, torch.int8) if is_token_leaf_path(p) else t, c)
+        handed.append(c)
+    caches = tree_map_with_path(lambda p, *ts: torch.cat(ts, 1), *handed)
     pos = torch.tensor([len(prompts[b]) for b in mine])
     logits = [torch.cat(firsts, 0)]
     tok = logits[0][:, 0].argmax(-1, keepdim=True)
@@ -137,37 +138,40 @@ def _seq_decode(ctx, arch, params, prompts, S, dtype, kv_dtype, changes,
         tok = lg[:, 0].argmax(-1, keepdim=True)
         greedy.append(tok)
     seq_bytes = ctx.stats.seq_bytes // max(1, steps)
-    whole = gather_cache(caches, ctx)
+    whole = gather_cache(caches, model)
     rows = split is not None
+    mix = caches[0][-1]["mix"]
     return {"logits": [_rows(x, ctx, rows).float().numpy() for x in logits],
             "greedy": _rows(torch.cat(greedy, 1), ctx, rows).numpy(),
-            "caches": [[{"mix": {n: (all_gather(t, ctx, ctx.batch_axes, 1)
-                                     if rows else t).float().numpy()
-                                 for n, t in e["mix"].items()}}
-                        for e in seg] for seg in whole],
+            "caches": tree_map_with_path(lambda p, t: (
+                all_gather(t, ctx, ctx.batch_axes, 1) if rows else t
+            ).float().numpy(), whole),
             "seq_bytes": seq_bytes,
-            "local_slots": caches[0][0]["mix"][
-                "c" if "c" in caches[0][0]["mix"] else "k"].shape[2]}
+            "local_slots": mix["c" if "c" in mix else "k"].shape[2]}
 
 
-def _serve_and_grads(ctx, arch, params, tokens, steps, labels2=None):
-    """Prefill ``tokens`` [B, T] (the rank's rows), ``steps`` greedy decode
-    steps over the prefill's caches grown by ``steps`` slots, then the loss
-    and every gradient of ``tokens`` as its own labels (and ``labels2``,
-    the MTP term's, where given). Returns the logical prefill logits,
-    caches, greedy tokens, loss, gradients and the EP counters."""
+def _serve_and_grads(ctx, arch, params, tokens, steps, labels2=None,
+                     src=None):
+    """Prefill ``tokens`` [B, T] (the rank's rows; over the source
+    embeddings ``src`` [B, S, d] where given), ``steps`` greedy decode
+    steps over the prefill's caches handed to decode with ``steps`` more
+    slots (``decode_cache``), then the loss and every gradient of
+    ``tokens`` as its own labels (and ``labels2``, the MTP term's, where
+    given). Returns the logical prefill logits, caches, greedy tokens,
+    loss, gradients and the EP counters."""
     ctx.stats.zero()
     model = _model(arch, params, ctx)
     toks = torch.from_numpy(tokens)
     split = ctx.split(0, ctx.batch_axes, toks.shape[0]) is not None
-    local = shard_batch({"tokens": toks}, ctx)["tokens"]
-    logits, caches = model.prefill({"tokens": local})
+    inputs = {"tokens": toks}
+    if src is not None:
+        inputs["src_embeds"] = torch.from_numpy(src)
+    local = shard_batch(inputs, ctx)
+    logits, caches = model.prefill(local)
     out = {"logits": _rows(logits, ctx, split).numpy(),
            "caches": logical_caches(caches, model, split)}
-    T = local.shape[1]
-    caches = [[{"mix": {k: torch.nn.functional.pad(
-        v, (0, 0) * (v.dim() - 3) + (0, steps))
-        for k, v in lay["mix"].items()}} for lay in seg] for seg in caches]
+    T = local["tokens"].shape[1]
+    caches = decode_cache(caches, model, T, T + steps)
     tok = logits[:, 0].argmax(-1, keepdim=True)
     greedy = [tok]
     for s in range(steps):
@@ -176,7 +180,7 @@ def _serve_and_grads(ctx, arch, params, tokens, steps, labels2=None):
         greedy.append(tok)
     out["greedy"] = _rows(torch.cat(greedy, 1), ctx, split).numpy()
     model.requires_grad_(True)
-    batch = {"tokens": toks, "labels": toks}
+    batch = {**inputs, "labels": toks}
     if labels2 is not None:
         batch["labels2"] = torch.from_numpy(labels2)
     batch = shard_batch(batch, ctx)

@@ -8,10 +8,10 @@ a bf16 model and cache and with a float32 model over an int8 cache, smoke
 deepseek-moe-16b (MHA, classic EP) and smoke deepseek-v3 (MLA under TP,
 its latent cache split by slots).
 
-Four sequences of lengths 5, 9, 7 and 15 are prefilled one by one, their
-caches joined into one logical decode cache of 16 slots
-(``launch.shardings.join_kv_heads``) and cut into the ranks' 8 slots each
-(``shard_cache``); 3 greedy steps then run each sequence at its own
+Four sequences of lengths 5, 9, 7 and 15 are prefilled one by one, each
+handed to a decode cache of 16 slots (``launch.shardings.decode_cache``:
+every real KV head, grown to the 16 slots and cut into the rank's 8) and
+the rows joined; 3 greedy steps then run each sequence at its own
 position: the first sequence's keys stay in rank 0's slots (rank 1 holds
 none of them: an empty partial), the second's new tokens go to rank 1,
 the third crosses the boundary, the fourth runs past the capacity (its
@@ -46,7 +46,7 @@ from repro_torch.configs import SMOKES
 from repro_torch.kernels.attn_split import attn_merge, merge_partials
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.launch.mesh import spawn
-from repro_torch.launch.shardings import shard_cache
+from repro_torch.launch.shardings import decode_cache
 from repro_torch.models import build_model
 from repro_torch.models.sharding import ShardCtx, slot_block
 
@@ -334,7 +334,7 @@ def test_flag_at_one_model_rank_is_bitwise_the_layout_without_it(arch):
 
 def test_slots_the_ranks_do_not_divide_raise():
     """A sequence-sharded cache needs the model axis to divide its slots:
-    ``init_cache``, ``shard_cache`` and ``slot_block`` refuse 15 over 2."""
+    ``init_cache``, ``decode_cache`` and ``slot_block`` refuse 15 over 2."""
     ctx = ShardCtx(mesh=ranks.fake_mesh(1, 2), kv_seq_shard=True)
     assert slot_block(ctx, 16) == (0, 8)
     with pytest.raises(ValueError, match="must divide"):
@@ -345,5 +345,8 @@ def test_slots_the_ranks_do_not_divide_raise():
         model.init_cache(2, 15)
     cache = model.init_cache(2, 16)
     assert cache[0][0]["mix"]["k"].shape == (2, 2, 8, 4, model.cfg.hd)
+    gqa = build_model(SMOKES["smollm-360m"], device="cpu",
+                      dtype=torch.float32, ctx=ctx)   # no heads to gather
     with pytest.raises(ValueError, match="must divide"):
-        shard_cache([[{"mix": {"k": torch.zeros(1, 1, 15, 4, 8)}}]], ctx)
+        decode_cache([[{"mix": {"k": torch.zeros(1, 1, 15, 1, 8)}}]], gqa,
+                     15, 15)

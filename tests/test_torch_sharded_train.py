@@ -7,8 +7,7 @@ gradient's norm, every updated parameter and moment); checkpoints of
 logical arrays across meshes and packages (written at (1, 2) and at
 (2, 2), restored at (1, 1) bit for bit, the first by JAX too; written at
 (1, 1), resumed at (1, 2));
-``launch.train.run(model_par=2)`` in a 2-process group; and what this
-slice does not cover refusing to run.
+and ``launch.train.run(model_par=2)`` in a 2-process group.
 
 Tolerances as tests/test_torch_train.py's: 2e-5 of each leaf's largest
 value; a parameter also moves by what that tolerance in its gradient can
@@ -32,7 +31,6 @@ from repro_torch.configs import SMOKES
 from repro_torch.launch.mesh import spawn
 from repro_torch.models import build_model, from_jax_params
 from repro_torch.models.convert import to_jax_tree
-from repro_torch.models.sharding import ShardCtx
 from repro_torch.training import (AdamWConfig, adamw_init, make_train_step,
                                   restore_checkpoint, save_checkpoint)
 from repro_torch.training.trainer import TrainState
@@ -236,14 +234,3 @@ def test_run_with_model_par_2_trains_and_resumes(world2):
     assert shapes["embed"] == (cfg.vocab // 2, cfg.d_model)
     assert shapes["seg0.0.0.mix.wq.w"] == (cfg.d_model, 8 * cfg.hd)
     assert shapes["seg0.0.0.mix.wk.w"] == (cfg.d_model, cfg.n_kv * cfg.hd)
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b",
-                                  "seamless-m4t-medium"])
-def test_tensor_parallel_of_uncovered_families_raises(arch):
-    """Hybrid and encoder-decoder models refuse a model axis of more than
-    one rank (they run data parallel; an SSM model runs on one,
-    tests/test_torch_zero3.py)."""
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_model(SMOKES[arch], device="cpu",
-                    ctx=ShardCtx(mesh=ranks.fake_mesh(1, 2)))
