@@ -159,7 +159,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
   7. the dry run against the card — ``launch.dryrun``'s estimate of a
      rank's peak memory (its inputs and the most its step holds beyond
      them, on the meta device) beside the card's: phase 5's cell and
-     6z's starcoder2-3b rank.
+     6z's starcoder2-3b rank;
+  8. the modeled clock — the server's ``StageProfile`` on the ``H100``
+     profile against the card: 3a, 3e, 3f and 3i time
+     ``ServingEngine.prefill`` of 4 x 1024 random tokens on their
+     full-depth models (warm, median of 3), and phase 8 prints each one's
+     measured share of peak (the modeled FLOPs over 989 TFLOP/s times
+     that time, required in (0, 1]) and the modeled time at ``H100.mfu``
+     beside the measured; each decode row of phase 2 on the cost model
+     (``decode_attention_cost`` at ``hbm_bw * hbm_eff``) beside its graph
+     time, with the split-KV partials' share of the kernel's traffic
+     (``decode_attention_traffic``); 3g's int8 and bf16 steps beside
+     ``decode_step_time`` and ``decode_step_roofline``.
 ``python3 chip_smoke.py --mesh-only`` runs phases 1 and 6k-6c alone and
 prints no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -460,6 +471,12 @@ def bwd_case(name, B, T, S, D, *, H=16, kv_map=None, kv_heads=None,
     return r, (q, k, v, kw)
 
 
+def row2_lengths(S):
+    """Row 2's lengths over ``S`` slots: one key, all, none, and off the
+    64-key tile."""
+    return [1, S, 0, 17, 128, 129, S // 2, S - 24]
+
+
 def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None, *,
                 kv_map=None, lengths=None, int8=False, label="",
                 plain_reps=REPS, row_rel=None):
@@ -484,8 +501,8 @@ def decode_case(dtype, B=8, H=16, D=64, S=1024, kv_heads=None, *,
         k, v = (_kv_store(x, torch.int8) for x in (k, v))
         kv_scale = 1.0 / _KV_QSCALE
     kv_map = map_tensor(H, Hk, kv_map)
-    lengths = torch.tensor(lengths or [1, S, 0, 17, 128, 129, S // 2, S - 24],
-                           dtype=torch.int32, device="cuda")[:B]
+    lengths = torch.tensor(lengths or row2_lengths(S), dtype=torch.int32,
+                           device="cuda")[:B]
     kw = dict(kv_map=kv_map, kv_scale=kv_scale)
     got = decode_attention(q, k, v, lengths, **kw)
     want = decode_attention_plain(q, k, v, lengths, **kw)
@@ -795,8 +812,16 @@ def rglru_bwd_case(name, B, T, W=4096, *, with_state):
 
 
 def phase_kernels():
+    """Returns the main path's cases (the kernels line) and the decode rows
+    (their label, dtype, ``decode_case``'s keywords and times) for phase
+    8."""
     log("[2] kernels against their plain versions on the card")
-    main = {}
+    main, decode_rows = {}, []
+
+    def decode_row(row, dtype, **kw):
+        r = decode_case(dtype, **kw)
+        decode_rows.append((row, dtype, kw, r))
+        return r
     for dtype in (torch.bfloat16, torch.float32):
         r = flash_case("prefill T=S=512 D=64", dtype, 512, 512, 64)
         if dtype is torch.bfloat16:
@@ -808,13 +833,13 @@ def phase_kernels():
         flash_case("window=128 T=S=512", dtype, 512, 512, 64, window=128)
         flash_case("non-causal T=200 S=300", dtype, 200, 300, 64,
                    causal=False)
-        r = decode_case(dtype)
+        r = decode_row("2", dtype)
         if dtype is torch.bfloat16:
             main["decode_attention"] = r
         # smollm-360m's real GQA: 16 padded query heads over 5 KV heads
         flash_case("GQA 16->5 T=S=512 D=64", dtype, 512, 512, 64,
                    kv_heads=5)
-        decode_case(dtype, kv_heads=5)
+        decode_row("2g", dtype, kv_heads=5)
         # recurrentgemma-9b's local attention: 16 query heads over one
         # stored KV head, head dim 256, window 2048
         flash_case("D=256 window=2048 T=S=2112 MQA", dtype, 2112, 2112, 256,
@@ -822,27 +847,27 @@ def phase_kernels():
         flash_case("D=256 window=2048 suffix T=32 S=2080 q_offset=2048 MQA",
                    dtype, 32, 2080, 256, q_offset=2048, window=2048,
                    kv_heads=1)
-        decode_case(dtype, D=256, S=2048, kv_heads=1)
+        decode_row("2b", dtype, D=256, S=2048, kv_heads=1)
         # deepseek-moe-16b's attention: 16 query heads over 16 KV heads
         # (MHA), head dim 128; a 256-token prompt, the suffix over a reused
         # 32-token prefix, and the decode step at 8 slots
         flash_case("deepseek-moe-16b D=128 T=S=256 MHA", dtype, 256, 256, 128)
         flash_case("deepseek-moe-16b suffix D=128 T=224 S=256 q_offset=32 "
                    "MHA", dtype, 224, 256, 128, q_offset=32)
-        decode_case(dtype, D=128)
+        decode_row("2m", dtype, D=128)
         # starcoder2-3b's attention (1s, 2s): 24 heads padded to 32 over 2
         # KV heads in groups of 12 and 20 (the second holds the 8 padded
         # heads), head dim 128
         flash_case("1s starcoder2-3b D=128 T=S=512 32->2", dtype, 512, 512,
                    128, H=32, kv_heads=2, kv_map=STARCODER2_MAP)
-        decode_case(dtype, H=32, D=128, kv_heads=2, kv_map=STARCODER2_MAP,
-                    label="2s starcoder2-3b")
+        decode_row("2s", dtype, H=32, D=128, kv_heads=2,
+                   kv_map=STARCODER2_MAP, label="2s starcoder2-3b")
         # qwen2-vl-7b's attention (1v, 2v): 28 heads padded to 32 over 4 KV
         # heads in groups of 7 (the last serves 11, 4 of them padded no-ops)
         flash_case("1v qwen2-vl-7b D=128 T=S=512 32->4", dtype, 512, 512,
                    128, H=32, kv_heads=4, kv_map=QWEN2VL_MAP)
-        decode_case(dtype, H=32, D=128, kv_heads=4, kv_map=QWEN2VL_MAP,
-                    label="2v qwen2-vl-7b")
+        decode_row("2v", dtype, H=32, D=128, kv_heads=4, kv_map=QWEN2VL_MAP,
+                   label="2v qwen2-vl-7b")
         # seamless-m4t-medium's (1e, 1x, 2x): 16 MHA heads of 64; the
         # encoder over 64 frames, a 256-token prefill's cross-attention over
         # them (both non-causal), and 8 sequences' cross-attention at decode
@@ -852,8 +877,8 @@ def phase_kernels():
                    causal=False)
         flash_case(f"1x seamless cross T=256 S={SEAMLESS_SRC} non-causal",
                    dtype, 256, SEAMLESS_SRC, 64, causal=False)
-        decode_case(dtype, D=64, S=SEAMLESS_SRC,
-                    lengths=[SEAMLESS_SRC] * 8, label="2x seamless cross")
+        decode_row("2x", dtype, D=64, S=SEAMLESS_SRC,
+                   lengths=[SEAMLESS_SRC] * 8, label="2x seamless cross")
     # qwen1.5-32b's decode step at 32k (2q8, 2q16): 40 MHA heads padded to
     # 48 over the 40 KV heads of an init_cache cache (the map is the
     # identity over 48; the kernel clamps the padded heads to the last),
@@ -868,10 +893,10 @@ def phase_kernels():
             ("2q8 qwen1.5-32b", torch.bfloat16, True),
             ("2q16 qwen1.5-32b", torch.bfloat16, False),
             ("2q8 qwen1.5-32b", torch.float32, True)):
-        decode_case(dtype, H=48, D=128, S=QWEN_S, kv_heads=40,
-                    kv_map=list(range(48)), lengths=QWEN_LENGTHS, int8=int8,
-                    label=label, plain_reps=2,
-                    row_rel=2.0 ** -7 if dtype is torch.bfloat16 else None)
+        decode_row(label.split()[0], dtype, H=48, D=128, S=QWEN_S,
+                   kv_heads=40, kv_map=list(range(48)), lengths=QWEN_LENGTHS,
+                   int8=int8, label=label, plain_reps=2,
+                   row_rel=2.0 ** -7 if dtype is torch.bfloat16 else None)
     # mamba2-1.3b's serve shapes (H=64, hd=64, N=128), float32 as the model
     # feeds the scan (the conv output is float32)
     main["ssd_chunked"] = ssd_case("prefill Bz=1 T=256", 1, 256,
@@ -927,7 +952,7 @@ def phase_kernels():
              causal=False)
     bwd_case("1f-bwd float32 smollm-360m", 2, 256, 256, 64, kv_heads=5,
              dtype=torch.float32)
-    return main
+    return main, decode_rows
 
 
 def fwd_lse_timing(q, k, v, kw):
@@ -1138,7 +1163,40 @@ def _arch(name):
     return ARCHS[name]
 
 
+#: phase 8's prefill: prompts of this many random tokens (seed 0), one
+#: ``ServingEngine.prefill`` each, no reuse
+CLOCK_PROMPTS, CLOCK_TOKENS = 4, 1024
+
+
+def prefill_clock(model, reps=3):
+    """The host-clock seconds of ``ServingEngine.prefill`` over
+    ``CLOCK_PROMPTS`` prompts of ``CLOCK_TOKENS`` tokens, one after another
+    and ended by a synchronise: warm (one pass first), the median of
+    ``reps`` passes; and the device's busy seconds in one more pass
+    (``torch.profiler``, its top kernels printed)."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(model)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab, size=(CLOCK_TOKENS,))
+               for _ in range(CLOCK_PROMPTS)]
+
+    def one_pass():
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.prefill(p)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    one_pass()
+    times = sorted(one_pass() for _ in range(reps))
+    log(f"  prefill of {CLOCK_PROMPTS} x {CLOCK_TOKENS} tokens, warm: "
+        + ", ".join(f"{t:.4f}" for t in times) + " s (phase 8 reads the "
+        "median)")
+    _, busy = profile_step("the same prefills, profiled", one_pass)
+    return times[reps // 2], busy / 1e3
+
+
 def phase_serve_smollm():
+    """3a; returns the launches and ``prefill_clock``'s times."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import make_requests
@@ -1159,7 +1217,7 @@ def phase_serve_smollm():
     device_shares(rows, busy, [(
         "index_select kernels (the embedding lookup's among them)",
         ("indexselect",))])
-    return launches
+    return launches, prefill_clock(model)
 
 
 def phase_serve_mamba2():
@@ -1335,7 +1393,8 @@ def phase_serve_dense(arch, label, rps=200.0, embeds=False):
     on 3a's stream (its requests at ``rps``), both attention kernels through
     its padded head map, and at least one request's suffix prefill over a
     reused 32-token paged prefix. ``embeds``: then one prefill from 256
-    input embeddings, the stub frontend's shape."""
+    input embeddings, the stub frontend's shape. Returns the launches and
+    ``prefill_clock``'s times."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import make_requests
@@ -1380,7 +1439,7 @@ def phase_serve_dense(arch, label, rps=200.0, embeds=False):
         assert torch.isfinite(lg[..., :cfg.vocab]).all()
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         " GB")
-    return launches
+    return launches, prefill_clock(model)
 
 
 MLA_DEPTH = 4       # of 61: deepseek-v3's 3 dense layers and 1 MoE layer
@@ -1597,7 +1656,10 @@ def qwen_decode(model, prompts, B, kv_dtype, first=None):
 def phase_qwen_int8():
     """3g: qwen1.5-32b at full width, depth cut to ``QWEN_DEPTH``, decoding 8
     sequences of ~32k tokens from an int8 KV cache read by the decode
-    kernel; held against a step over the bf16 cache of the same prefill."""
+    kernel; held against a step over the bf16 cache of the same prefill.
+    Returns the decode kernel's launches and, for phase 8, each step's
+    (K/V bytes an element, batch, mean keys read, host-clock seconds,
+    device ms)."""
     import dataclasses
 
     from repro_torch.models.blocks import AttnDims
@@ -1657,7 +1719,11 @@ def phase_qwen_int8():
     if not (tv < 0.25 and int(a.argmax()) == int(b.argmax())):
         raise SystemExit("qwen1.5-32b: the int8 decode step strays from bf16")
     assert torch.isfinite(lg8).all() and torch.isfinite(lg16).all()
-    return {"decode_attention": launches}
+    # a step at position pos reads pos + 1 keys; the bf16 pass copies
+    # sequence 0's cache into every slot
+    steps = [(1, 8, sum(lens) / 8 + 1, t8, dev8),
+             (2, b16, lens[0] + 1, t16, dev16)]
+    return {"decode_attention": launches, "steps": steps}
 
 
 def gc_cuda():
@@ -3936,6 +4002,122 @@ def phase_dry_vs_card(card, z3_peak, z3_est):
         log(f"  {label}: dry run {est:.2f} GB, the card's peak {got:.2f} GB"
             f", card / dry run {got / est:.3f}")
 
+
+# ------------------------------------------------------------------ phase 8
+def serve_profile(cfg, kv_dtype_bytes=2):
+    """The ``StageProfile`` a default ``DisaggServer`` builds for ``cfg``:
+    the modeled clock of the port's server (``DisaggConfig.hw`` is
+    ``H100``; one GPU a unit)."""
+    from repro_torch.core.stages import (GroupPlan, ParallelismSpec,
+                                         StageProfile)
+    from repro_torch.serving import DisaggConfig
+    dc = DisaggConfig(kv_dtype_bytes=kv_dtype_bytes)
+    return StageProfile(
+        model=cfg, hw=dc.hw, par=ParallelismSpec(mode="ep",
+                                                 ep=dc.gpus_per_unit),
+        plan=GroupPlan.build(cfg.n_layers, min(dc.layer_groups,
+                                               cfg.n_layers)),
+        kv_dtype_bytes=kv_dtype_bytes, act_dtype_bytes=2,
+        gpus_per_server=dc.gpus_per_unit)
+
+
+def prefill_modeled(cfg):
+    """The modeled work and seconds of ``prefill_clock``'s prompts on the
+    server's clock: the FLOPs its groups' times stand for, and their sum."""
+    from repro_torch.core.stages import PrefillItem
+    prof = serve_profile(cfg)
+    items = [PrefillItem(rid=i, arrival=0.0, n_tokens=CLOCK_TOKENS)
+             for i in range(CLOCK_PROMPTS)]
+    t = sum(prof.group_compute_time(items, g) for g in range(len(prof.plan)))
+    return t * prof.par.gpus * prof.hw.flops * prof.hw.mfu, t
+
+
+def decode_row_model(dtype, kw, *, cap, sms):
+    """One phase-2 decode row on the cost model: (the cost model's bytes
+    summed per sequence over the row's lengths, the kernel's traffic by
+    ``decode_attention_traffic``). ``cap(D)`` gives the kernel's heads a
+    block."""
+    import inspect
+
+    from repro_torch.kernels.decode_attention import (decode_attention_cost,
+                                                      decode_attention_traffic)
+    a = inspect.signature(decode_case).bind(dtype, **kw)
+    a.apply_defaults()
+    B, H, D, S = (a.arguments[k] for k in ("B", "H", "D", "S"))
+    Hk = a.arguments["kv_heads"] or H
+    lengths = (a.arguments["lengths"] or row2_lengths(S))[:B]
+    qb = torch.finfo(dtype).bits // 8
+    kvb = 1 if a.arguments["int8"] else qb
+    cost = sum(decode_attention_cost(1, Hk, D, n, dtype_bytes=kvb)[1]
+               for n in lengths)
+    traffic = decode_attention_traffic(
+        B, H, Hk, D, S, lengths, cap=cap(D), sms=sms, dtype_bytes=kvb,
+        q_bytes=qb, kv_map=map_list(H, Hk, a.arguments["kv_map"]))
+    return cost, traffic
+
+
+def phase_clock(card, prefills, decode_rows, steps, *, cap=None, sms=None):
+    """8: the modeled clock (``StageProfile`` on the ``H100`` profile, the
+    port's server's) against the card. Prefill: the measured share of
+    peak, modeled FLOPs over 989 TFLOP/s times ``prefill_clock``'s median,
+    for each served dense model (``prefills``: arch -> its host and device
+    seconds), each in (0, 1], and the share over the device's busy time;
+    the modeled time at ``H100.mfu`` beside the measured.
+    Decode: each phase-2 row's cost-model bytes at ``hbm_bw * hbm_eff``
+    against its graph time, with the share of the split-KV partials in the
+    kernel's traffic; 3g's steps (``steps``) against ``decode_step_time``
+    and ``decode_step_roofline`` of qwen1.5-32b at its depth. ``cap`` and
+    ``sms`` default to the built kernel's and the card's."""
+    import dataclasses
+
+    from repro_torch.kernels.attn_split import sm_count
+    from repro_torch.kernels.decode_attention import _cap
+    from repro_torch.simcluster.hw import H100
+    cap = cap or _cap
+    sms = sms or sm_count(torch.device("cuda"))
+    log(f"[8] the modeled clock against the card ({card}): H100 profile "
+        f"flops {H100.flops:.4g}, mfu {H100.mfu}, hbm_bw {H100.hbm_bw:.4g} "
+        f"B/s, hbm_eff {H100.hbm_eff}")
+    log(f"  prefill, {CLOCK_PROMPTS} x {CLOCK_TOKENS} tokens through "
+        "ServingEngine.prefill, no reuse:")
+    for arch, (t, busy) in prefills.items():
+        flops, modeled = prefill_modeled(_arch(arch))
+        mfu = flops / (989e12 * t)
+        log(f"    {arch}: modeled {flops / 1e12:.3f} TFLOP; measured "
+            f"{t:.4f} s -> mfu_measured {mfu:.4f} (device busy {busy:.4f} s "
+            f"-> {flops / (989e12 * busy):.4f}); modeled at mfu {H100.mfu}: "
+            f"{modeled:.4f} s ({modeled / t - 1:+.3f})")
+        if not 0.0 < mfu <= 1.0:
+            raise SystemExit(f"{arch}: a measured share of peak of {mfu:.4f}"
+                             ": the modeled work or the timing is wrong")
+    bw = H100.hbm_bw * H100.hbm_eff
+    log(f"  decode attention, phase 2's rows: the cost model's bytes (per "
+        f"sequence, over the row's lengths) at {bw / 1e12:.4g} TB/s against "
+        "the graph time; the kernel's split-KV partials' share of its "
+        "traffic (decode_attention_traffic)")
+    for row, dtype, kw, r in decode_rows:
+        cost, tr = decode_row_model(dtype, kw, cap=cap, sms=sms)
+        total = tr["kv"] + tr["q"] + tr["out"] + tr["partials"]
+        modeled, ms = cost / bw * 1e3, r["ms"]
+        kv = " K/V int8" if kw.get("int8") else ""
+        log(f"    {row} {str(dtype)[6:]}{kv}: cost {cost / 1e6:.4f} MB, "
+            f"modeled {modeled:.5f} ms, measured {ms:.5f} ms, model error "
+            f"{modeled / ms - 1:+.3f}; traffic {total / 1e6:.4f} MB, "
+            f"{tr['n_split']} chunks, partials {tr['partials'] / total:.4f} "
+            "of it")
+    cfg = dataclasses.replace(_arch("qwen1.5-32b"), n_layers=QWEN_DEPTH)
+    log(f"  decode step, qwen1.5-32b at depth {QWEN_DEPTH} (3g):")
+    for kvb, B, ctx, t, dev in steps:
+        prof = serve_profile(cfg, kv_dtype_bytes=kvb)
+        a = prof.decode_step_time(B, ctx)
+        rl = prof.decode_step_roofline(B, ctx)
+        log(f"    {'int8' if kvb == 1 else 'bf16'} K/V, B={B}, mean keys "
+            f"{ctx:.1f}: decode_step_time {a * 1e3:.3f} ms, "
+            f"decode_step_roofline {rl * 1e3:.3f} ms; measured host "
+            f"{t * 1e3:.3f} ms, device {dev:.3f} ms; model error "
+            f"{a / t - 1:+.3f} (host), {a * 1e3 / dev - 1:+.3f} (device)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3989,9 +4171,12 @@ def main() -> int:
             run_phase(label, fn, card)
         log(f"  mesh phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
-    main_cases = run_phase("2", phase_kernels)
-    launches = {**run_phase("3a", phase_serve_smollm),
-                **run_phase("3b", phase_serve_mamba2)}
+    main_cases, decode_rows = run_phase("2", phase_kernels)
+    # phase 8's prefill times: 3a, 3e, 3f and 3i time ServingEngine.prefill
+    # on their full-depth models
+    prefills = {}
+    launches, prefills["smollm-360m"] = run_phase("3a", phase_serve_smollm)
+    launches.update(run_phase("3b", phase_serve_mamba2))
     # the hybrid path launches both attention kernels too: the kernels
     # line keeps 3a's counts for them and reads rglru_scan's from 3c
     hybrid = run_phase("3c", phase_serve_hybrid)
@@ -4004,17 +4189,20 @@ def main() -> int:
     # it are routed (0 reused); at 100 a follow-up resumes a 32-token
     # prefix, as in 3a and 3f (the modeled clock reads the config only:
     # tests/test_torch_dense.py checks both streams on the CPU)
-    run_phase("3e", phase_serve_dense, "minitron-8b", "3e", rps=100.0)
-    run_phase("3f", phase_serve_dense, "starcoder2-3b", "3f")
-    run_phase("3g", phase_qwen_int8)
+    _, prefills["minitron-8b"] = run_phase("3e", phase_serve_dense,
+                                           "minitron-8b", "3e", rps=100.0)
+    _, prefills["starcoder2-3b"] = run_phase("3f", phase_serve_dense,
+                                             "starcoder2-3b", "3f")
+    qwen = run_phase("3g", phase_qwen_int8)
     # the last three families: deepseek-v3 at full width cut to depth 4
     # (53.4 GB in bf16; depth 5 would be 76.5 GB), qwen2-vl-7b at full
     # width and depth on 3a's stream at 100 requests/s (at 200 its modeled
     # prefills outlast the gaps, as minitron-8b's), then one prefill from
     # input embeddings; seamless-m4t-medium at full width and depth
     run_phase("3h", phase_serve_mla)
-    run_phase("3i", phase_serve_dense, "qwen2-vl-7b", "3i", rps=100.0,
-              embeds=True)
+    _, prefills["qwen2-vl-7b"] = run_phase("3i", phase_serve_dense,
+                                           "qwen2-vl-7b", "3i", rps=100.0,
+                                           embeds=True)
     run_phase("3j", phase_serve_encdec)
     run_phase("4a", phase_whole_model, "smollm-360m")
     run_phase("4b", phase_whole_model, "mamba2-1.3b")
@@ -4092,6 +4280,7 @@ def main() -> int:
     run_phase("6k", phase_mesh_kernels_tp)
     run_phase("6r", phase_mesh_tp, card)
     run_phase("7", phase_dry_vs_card, card, z3_peak, z3_est)
+    run_phase("8", phase_clock, card, prefills, decode_rows, qwen["steps"])
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:110"),

@@ -35,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,7 +45,8 @@ from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_plain",
-           "decode_attention_cost", "kv_dequant", "partial_softmax"]
+           "decode_attention_cost", "decode_attention_traffic", "kv_dequant",
+           "partial_softmax"]
 
 TILE = 64               # keys a tile of the kernel; a chunk is a multiple
 #: K/V dtypes the kernel takes (q's, or int8), by their code in the C
@@ -140,6 +141,51 @@ def decode_attention_cost(n_seqs: int, n_heads: int, head_dim: int,
     hbm = n_seqs * (2.0 * S * n_heads * head_dim * dtype_bytes      # K+V
                     + 2.0 * n_heads * head_dim * dtype_bytes)       # q+out
     return flops, hbm
+
+
+def decode_attention_traffic(B: int, H: int, Hk: int, D: int, S: int,
+                             lengths: Sequence[int], *, cap: int, sms: int,
+                             dtype_bytes: int = 2,
+                             q_bytes: Optional[int] = None,
+                             kv_map: Optional[Sequence[int]] = None) -> dict:
+    """The HBM bytes one (non-partial) call of the kernel moves, counted in
+    Python from its launch plan (``split_plan``) and its loop bounds
+    (``csrc/decode_attention.cu``: the block of chunk ``c`` reads K/V rows
+    ``[c * chunk, min((c + 1) * chunk, len))``; rows past the end are
+    zero-filled in shared memory, not read; a block that serves no query
+    head has already issued its first tile's copy). ``cap`` is
+    ``_cap(D)`` and ``sms`` the card's SM count, given here so that no
+    library is built; ``dtype_bytes`` is a K/V element's, ``q_bytes`` q's
+    and the output's (default: the same); ``kv_map`` a list of H ints
+    (None: the identity). Returns the bytes of the K/V rows read (``kv``),
+    of q as every chunk's block loads it (``q``), of the output (``out``),
+    of the float32 partials and their log-sum-exps written by the chunks
+    and read back by the combine kernel when ``n_split`` > 1
+    (``partials``), and ``n_split``. The lengths and the map, 4 bytes an
+    entry a block, are left out."""
+    qb = dtype_bytes if q_bytes is None else q_bytes
+    if kv_map is None and H != Hk:
+        raise ValueError(f"decode_attention_traffic: {H} query heads over "
+                         f"{Hk} KV heads need a map")
+    heads = [min(max(int(m), 0), Hk - 1) for m in kv_map] \
+        if kv_map is not None else list(range(H))
+    group = [heads.count(k) for k in range(Hk)]
+    cap = min(cap, H)
+    chunk, n_split, n_hb = split_plan(B, H, Hk, S, cap=cap, sms=sms)
+    kv_rows = q_rows = 0
+    for n in lengths:
+        n = min(max(int(n), 0), S)
+        rows = [max(min(c * chunk + chunk, n) - c * chunk, 0)
+                for c in range(n_split)]
+        for k in range(Hk):
+            for hb in range(n_hb):
+                G = min(max(group[k] - hb * cap, 0), cap)
+                kv_rows += sum(rows) if G else sum(min(r, TILE)
+                                                   for r in rows)
+                q_rows += G * n_split
+    partials = 2 * n_split * B * H * (D + 1) * 4 if n_split > 1 else 0
+    return {"kv": 2 * kv_rows * D * dtype_bytes, "q": q_rows * D * qb,
+            "out": B * H * D * qb, "partials": partials, "n_split": n_split}
 
 
 def _lib() -> ctypes.CDLL:

@@ -42,10 +42,18 @@ TPU_V5E = HW("tpu_v5e", flops=197e12, hbm_bw=819 * GB, nic_bw=50 * GB,
              scaleup_bw=50 * GB, mfu=0.5)
 
 # Serving target of the PyTorch port: one NVIDIA H100 SXM per endpoint.
-# Data-sheet figures, not measured: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3,
-# 900 GB/s NVLink, one 400 Gb/s NIC per GPU. ``mfu`` is a placeholder (the
-# A100 default) until prefill GEMMs are timed on the card.
+# Data-sheet figures: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 900 GB/s
+# NVLink, one 400 Gb/s NIC per GPU. ``mfu`` is measured: the modeled FLOPs
+# of 4 prompts x 1024 tokens through the port's ``ServingEngine.prefill``
+# over 989 TFLOP/s times the host-clock seconds to a synchronise (warm,
+# median of 3; chip_smoke.py phase 8), on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit, in four processes on three machines: minitron-8b
+# 0.3262, 0.4918, 0.4721, 0.5335 (set here to their median: the largest
+# dense config whole on one card; over the device's busy time alone
+# 0.634-0.636, the rest is the host's), starcoder2-3b 0.2722, 0.2536,
+# 0.2587, 0.2574, smollm-360m 0.0241, 0.0196, 0.0202, 0.0244.
+# ``hbm_eff`` keeps the A100 default.
 H100 = HW("h100", flops=989e12, hbm_bw=3.35e12, nic_bw=400 * Gb,
-          scaleup_bw=900 * GB, mfu=0.45)
+          scaleup_bw=900 * GB, mfu=0.48)
 
 __all__ += ["H100"]
