@@ -28,7 +28,9 @@ float32 output normalised over those keys, with its base-2 log-sum-exp
 ``attn_split.attn_merge`` to merge with the other ranks'.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. ``decode_attention.launches`` counts wrapper calls that launched.
+raises. ``decode_attention.launches`` counts wrapper calls that launched;
+while ``tracing`` records, the CUDA branch is a ``kernel.decode_attention``
+span.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from . import _build, meta
+from ..tracing import REC, on
 from .attn_split import DTYPES, aligned, check_kv_map, expand_kv, sm_count
 from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
@@ -251,6 +254,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return meta.empty(B, H, D, dtype=q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
+    sp = REC.open("kernel.decode_attention") if on() else -1
     B, H, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
     if k.shape != (B, S, Hk, D) or v.shape != (B, S, Hk, D) \
@@ -276,6 +280,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse_out = (torch.empty((B, H), dtype=torch.float32, device=q.device)
                if partial else None)
     if out.numel() == 0:
+        if sp >= 0:
+            REC.close(sp)
         return (out, lse_out) if partial else out
     chunk, n_split, n_hb = split_plan(B, H, Hk, S, cap=_cap(D),
                                       sms=sm_count(q.device))
@@ -303,6 +309,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
     decode_attention.launches += 1
+    if sp >= 0:
+        REC.close(sp)
     return (out, lse_out) if partial else out
 
 

@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..tracing import REC, on
 from .blocks import (MLA, RGLRU, Attention, AttnDims, attn_apply, attn_init,
                      cross_apply, ffn_apply, ffn_init, mla_apply, mla_init,
                      moe_apply, moe_init, rglru_apply, rglru_blocks,
@@ -365,6 +366,8 @@ class Model(nn.Module):
         no caches (None), and with ``remat`` checkpoints each layer."""
         new_caches = []
         keep = sink is None and mode != "train"
+        rec = mode == "decode" and on()     # a span for each decode layer
+        n = 0
         for si, seg in enumerate(self.segments):
             outs: List[List[Dict[str, Any]]] = [[] for _ in seg.kinds]
             for c, block in enumerate(self._blocks(si)):
@@ -374,9 +377,14 @@ class Model(nn.Module):
                         continue
                     ci = None if caches is None else _tree_map(
                         lambda t: t[c], caches[si][i])
+                    if rec:
+                        sp = REC.open("model.layer", n)
+                        n += 1
                     with self._gathered(layer):
                         x, nc = layer(x, cfg=self.cfg, mode=mode, cache=ci,
                                       pos=pos, memory=memory)
+                    if rec:
+                        REC.close(sp)
                     if sink is None:
                         outs[i].append(nc)
                     else:
@@ -573,14 +581,20 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, caches, tok, pos: Union[int, torch.Tensor]):
         """tok: [B, 1] int, or [B, 1, d] embeddings; pos: int or [B]
-        positions (== current lengths)."""
+        positions (== current lengths). Recorded (``tracing``) as
+        ``model.decode_step`` around a ``model.layer`` span for each layer
+        (id: its index)."""
+        sp = REC.open("model.decode_step") if on() else -1
         tok = torch.as_tensor(tok, device=self.device)
         B = tok.shape[0]
         pos = torch.as_tensor(pos, device=self.device).long().expand(B)
         x = tok.to(self.dtype) if tok.is_floating_point() \
             else self._lookup(tok)
         x, caches = self._run_segments(x, "decode", caches=caches, pos=pos)
-        return self._logits(x), caches
+        logits = self._logits(x)
+        if sp >= 0:
+            REC.close(sp)
+        return logits, caches
 
     # ---------------------------------------------------------- cache specs
     def init_cache(self, batch_size: int, max_len: int,

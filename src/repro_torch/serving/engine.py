@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.lm import Model
+from ..tracing import REC, on, syncs
 from .paged_kv import is_token_leaf_path, tree_map_with_path
 
 __all__ = ["ServingEngine", "DecodeBatch", "leaf_slots", "admit_leaf"]
@@ -108,6 +109,7 @@ class DecodeBatch:
         self._stacked: Optional[Any] = None
         self._tok = np.zeros((max_slots,), np.int64)
         self._pos = np.zeros((max_slots,), np.int64)
+        self.n_steps = 0          # steps taken; a step's span carries it
 
     def _build(self, example_cache: Any) -> None:
         def empty(path, leaf):
@@ -126,6 +128,7 @@ class DecodeBatch:
         """Admit a prefilled sequence; returns its slot id."""
         if not self._free:
             raise RuntimeError("decode batch full")
+        sp = REC.open("engine.add", rid) if on() else -1
         if self._stacked is None:
             self._build(cache)
         slot = self._free.pop()
@@ -140,6 +143,8 @@ class DecodeBatch:
         self._pos[slot] = n_tokens
         self.slots[slot] = _Slot(rid=rid, pos=n_tokens, tokens=[first_token],
                                  max_new=max_new)
+        if sp >= 0:
+            REC.close(sp)
         return slot
 
     def remove(self, slot: int) -> _Slot:
@@ -151,14 +156,38 @@ class DecodeBatch:
     def step(self) -> Dict[int, int]:
         """One batched decode step for every slot. Returns {rid: new_token}
         for the active ones and retires slots that reached ``max_new`` or
-        capacity."""
+        capacity.
+
+        Recorded (``tracing``): ``engine.step`` (id: the step's number)
+        around ``engine.inputs`` (the host-to-device copies of the inputs),
+        ``model.decode_step``, ``engine.sync`` (the read of the tokens) and
+        ``engine.retire``; the counter ``host_syncs`` takes one for each of
+        those copies that blocked the host (``tracing.syncs``)."""
         if not self.slots:
             return {}
+        self.n_steps += 1
+        rec = on()
+        if rec:
+            sp = REC.open("engine.step", self.n_steps)
+            si = REC.open("engine.inputs")
         dev = self.model.device
-        logits, self._stacked = self.model.decode_step(
-            self._stacked, torch.from_numpy(self._tok[:, None]).to(dev),
-            torch.from_numpy(self._pos).to(dev))
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        tok_h = torch.from_numpy(self._tok[:, None])
+        pos_h = torch.from_numpy(self._pos)
+        tok, pos = tok_h.to(dev), pos_h.to(dev)
+        if rec:
+            REC.count("host_syncs", syncs(tok_h, tok) + syncs(pos_h, pos))
+            REC.close(si)
+        logits, self._stacked = self.model.decode_step(self._stacked, tok,
+                                                       pos)
+        if rec:
+            si = REC.open("engine.sync")
+        nxt_d = torch.argmax(logits[:, -1], dim=-1)
+        nxt_h = nxt_d.cpu()
+        nxt = nxt_h.numpy()
+        if rec:
+            REC.count("host_syncs", syncs(nxt_d, nxt_h))
+            REC.close(si)
+            si = REC.open("engine.retire")
         out: Dict[int, int] = {}
         for slot, meta in list(self.slots.items()):
             t = int(nxt[slot])
@@ -169,6 +198,9 @@ class DecodeBatch:
             self._pos[slot] = meta.pos
             if len(meta.tokens) >= meta.max_new or meta.pos >= self.capacity - 1:
                 self.remove(slot)
+        if rec:
+            REC.close(si)
+            REC.close(sp)
         return out
 
     @property
