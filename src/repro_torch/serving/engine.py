@@ -11,9 +11,16 @@ window)`` slots as a ring (position p at slot ``p % S``). Slots are recycled
 as sequences retire; inactive slots still compute (dead lanes, their writes
 kept inside the capacity) and are left out of the results, as a fixed-shape
 serving binary would.
+
+Every step of a batch therefore issues the same operations on the same
+addresses: on one CUDA device (``graphable``) the batch captures its decode
+step once, with the argmax, as a CUDA graph over static input and output
+buffers, and replays it on every later step, so the host launches one graph
+instead of each operation of the model.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -24,7 +31,19 @@ from ..models.lm import Model
 from ..tracing import REC, on, syncs
 from .paged_kv import is_token_leaf_path, tree_map_with_path
 
-__all__ = ["ServingEngine", "DecodeBatch", "leaf_slots", "admit_leaf"]
+__all__ = ["ServingEngine", "DecodeBatch", "leaf_slots", "admit_leaf",
+           "graphable"]
+
+
+def graphable(model: Model) -> bool:
+    """Whether ``DecodeBatch`` replays ``model``'s decode step as a CUDA
+    graph: the model lives on a CUDA device and on one rank (no mesh, or a
+    mesh of one rank, which runs the same operations). The CPU and the meta
+    device have no graphs, and a mesh's collectives cannot be captured:
+    there the step runs eagerly."""
+    mesh = model.ctx.mesh
+    return model.device.type == "cuda" and (
+        mesh is None or math.prod(mesh.shape.values()) == 1)
 
 
 def _window(model: Model, path) -> int:
@@ -98,7 +117,13 @@ class _Slot:
 
 
 class DecodeBatch:
-    """Slotted continuous-batching decode engine (one decode unit)."""
+    """Slotted continuous-batching decode engine (one decode unit).
+
+    Graphed (``graphable``), the batch holds its CUDA graph, and the
+    graph's private memory pool, for as long as the batch lives: one
+    step's intermediates (the logits, and for a MoE decode the gathered
+    expert weights, ~5.5 GB for deepseek-v3 at 8 slots on the H100). Each
+    decode unit on a card reserves its own such pool."""
 
     def __init__(self, model: Model, capacity: int = 256, max_slots: int = 8):
         self.model = model
@@ -107,8 +132,23 @@ class DecodeBatch:
         self.slots: Dict[int, _Slot] = {}
         self._free = list(range(max_slots - 1, -1, -1))
         self._stacked: Optional[Any] = None
-        self._tok = np.zeros((max_slots,), np.int64)
-        self._pos = np.zeros((max_slots,), np.int64)
+        self.graphed = graphable(model)
+        # the step's inputs: host tensors that ``_tok`` and ``_pos`` view
+        # (pinned where graphed, so that the copies in need not block) and
+        # the buffers on the model's device that every step reads
+        pin, dev = self.graphed, model.device
+        self._tok_h = torch.zeros((max_slots, 1), dtype=torch.int64,
+                                  pin_memory=pin)
+        self._pos_h = torch.zeros((max_slots,), dtype=torch.int64,
+                                  pin_memory=pin)
+        self._tok = self._tok_h.numpy()[:, 0]
+        self._pos = self._pos_h.numpy()
+        self._tok_d = torch.zeros_like(self._tok_h, device=dev)
+        self._pos_d = torch.zeros_like(self._pos_h, device=dev)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        #: the last step's logits at the new position, [max_slots, V]
+        self.logits: Optional[torch.Tensor] = None
+        self._out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.n_steps = 0          # steps taken; a step's span carries it
 
     def _build(self, example_cache: Any) -> None:
@@ -158,11 +198,20 @@ class DecodeBatch:
         for the active ones and retires slots that reached ``max_new`` or
         capacity.
 
+        The host writes ``_tok`` and ``_pos`` only after the previous step's
+        read of its tokens, which orders the writes after that step's copies
+        in. Graphed (``graphable``), the copies in do not block, the first
+        step captures the graph (``_capture``) and every later one replays
+        it (the caches, which it holds by address, are built once, at the
+        first ``add``); else ``Model.decode_step`` runs eagerly.
+
         Recorded (``tracing``): ``engine.step`` (id: the step's number)
-        around ``engine.inputs`` (the host-to-device copies of the inputs),
-        ``model.decode_step``, ``engine.sync`` (the read of the tokens) and
-        ``engine.retire``; the counter ``host_syncs`` takes one for each of
-        those copies that blocked the host (``tracing.syncs``)."""
+        around ``engine.inputs`` (the copies of the inputs to the device),
+        ``model.decode_step`` (the eager call, or the replay),
+        ``engine.sync`` (the read of the tokens) and ``engine.retire``; the
+        counter ``host_syncs`` takes one for each copy that blocked the host
+        (``tracing.syncs``), and ``decode_graph_replays`` one for each
+        replay."""
         if not self.slots:
             return {}
         self.n_steps += 1
@@ -170,18 +219,30 @@ class DecodeBatch:
         if rec:
             sp = REC.open("engine.step", self.n_steps)
             si = REC.open("engine.inputs")
-        dev = self.model.device
-        tok_h = torch.from_numpy(self._tok[:, None])
-        pos_h = torch.from_numpy(self._pos)
-        tok, pos = tok_h.to(dev), pos_h.to(dev)
+        tok, pos = self._tok_d, self._pos_d
+        tok.copy_(self._tok_h, non_blocking=self.graphed)
+        pos.copy_(self._pos_h, non_blocking=self.graphed)
         if rec:
-            REC.count("host_syncs", syncs(tok_h, tok) + syncs(pos_h, pos))
+            REC.count("host_syncs", 0 if self.graphed else
+                      syncs(self._tok_h, tok) + syncs(self._pos_h, pos))
             REC.close(si)
-        logits, self._stacked = self.model.decode_step(self._stacked, tok,
-                                                       pos)
+        if not self.graphed:
+            logits, self._stacked = self.model.decode_step(self._stacked,
+                                                           tok, pos)
+            self.logits = logits[:, -1]
+        elif self._graph is None:
+            self.logits, nxt_d = self._capture()
+        else:
+            sd = REC.open("model.decode_step") if rec else -1
+            self._graph.replay()
+            if sd >= 0:
+                REC.count("decode_graph_replays")
+                REC.close(sd)
+            self.logits, nxt_d = self._out
         if rec:
             si = REC.open("engine.sync")
-        nxt_d = torch.argmax(logits[:, -1], dim=-1)
+        if not self.graphed:
+            nxt_d = torch.argmax(self.logits, dim=-1)
         nxt_h = nxt_d.cpu()
         nxt = nxt_h.numpy()
         if rec:
@@ -202,6 +263,34 @@ class DecodeBatch:
             REC.close(si)
             REC.close(sp)
         return out
+
+    def _capture(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The first graphed step: ``Model.decode_step`` runs eagerly (it
+        builds and loads the kernels and cuBLAS's handles, and its outputs
+        are this step's), then the same call and the argmax are captured,
+        on a side stream, into a CUDA graph over ``_tok_d``, ``_pos_d``, the
+        caches (written in place) and the outputs ``_out``. The eager call
+        stays on the current stream, so that its transient tensors reuse
+        that stream's cached memory. A capture runs nothing, so the caches
+        take this step's writes once; nor does it wait on the device.
+        Returns this step's logits at the new position and its tokens, on
+        the device."""
+        logits, _ = self.model.decode_step(self._stacked, self._tok_d,
+                                           self._pos_d)
+        row = logits[:, -1]
+        nxt = torch.argmax(row, dim=-1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(torch.cuda.Stream()):
+            graph.capture_begin()
+            try:
+                logits, _ = self.model.decode_step(self._stacked,
+                                                   self._tok_d, self._pos_d)
+                self._out = (logits[:, -1],
+                             torch.argmax(logits[:, -1], dim=-1))
+            finally:
+                graph.capture_end()
+        self._graph = graph
+        return row, nxt
 
     @property
     def n_active(self) -> int:
