@@ -1353,8 +1353,9 @@ def prefill_syncs(model, tokens):
 
 def moe_decode_cost(model, slots=8):
     """One MoE layer at the decode step's shape (``slots`` tokens): the
-    token-gather path (``_moe_token_gather``, what decode runs) and its
-    weight gather alone, by graph replay; the grouped path on the same
+    decode path (``_moe_token_gather``: every expert the layer holds over
+    every token) and, for comparison, a per-token gather of the routed
+    experts' weights alone, by graph replay; the grouped path on the same
     tokens eagerly (it reads its largest group on the host, so no graph
     holds it), and the two paths' agreement."""
     from repro_torch.models import blocks
@@ -1363,7 +1364,7 @@ def moe_decode_cost(model, slots=8):
     x = torch.randn(slots, 1, cfg.d_model, generator=g,
                     device="cuda").to(model.dtype)
     _, idx = blocks._route(x.reshape(slots, -1), p.router, cfg.top_k)
-    check(f"moe[{slots} decode tokens] grouped vs token gather",
+    check(f"moe[{slots} decode tokens] grouped vs decode path",
           blocks._moe_local(p, x, cfg), blocks._moe_token_gather(p, x, cfg),
           TOL[model.dtype])
     expert = 3 * cfg.d_model * cfg.d_expert * p.w_in.element_size()
@@ -1375,9 +1376,8 @@ def moe_decode_cost(model, slots=8):
     log(f"  one MoE layer, {slots} decode tokens x top-{cfg.top_k} over "
         f"{distinct} distinct experts: weight gather {ms_gather:.4f} ms "
         f"({gathered / 1e6:.1f} MB gathered: read and written, "
-        f"{2 * gathered / ms_gather / 1e9:.3f} TB/s), token-gather path "
-        f"{ms_path:.4f} ms (bound {3 * gathered / HBM_BW * 1e3:.4f} ms for "
-        f"its 3 passes), grouped path {ms_grouped:.4f} ms eager, host "
+        f"{2 * gathered / ms_gather / 1e9:.3f} TB/s), decode path "
+        f"{ms_path:.4f} ms (every expert's weights read once), grouped path {ms_grouped:.4f} ms eager, host "
         f"included (it reads all {cfg.n_experts} experts' weights once: "
         f"{cfg.n_experts * expert / HBM_BW * 1e3:.4f} ms at the HBM rate; "
         f"the {distinct} experts routed to need "
@@ -1410,7 +1410,7 @@ def phase_serve_moe():
     assert first["decode_attention"] >= 2 * cfg.n_layers, first
     rows, busy = serve_profiled(
         model, reqs, spans={"moe prefill (grouped)": (blocks, "_moe_local"),
-                            "moe decode (token gather)": (
+                            "moe decode (held experts)": (
                                 blocks, "_moe_token_gather")})
     device_shares(rows, busy, [
         ("flash_attention", ("flashmma", "flashf32")),
@@ -1527,7 +1527,7 @@ def phase_serve_mla():
     rows, busy = serve_profiled(
         model, reqs, spans={"mla (absorbed attention)": (lm, "mla_apply"),
                             "moe prefill (grouped)": (blocks, "_moe_local"),
-                            "moe decode (token gather)": (
+                            "moe decode (held experts)": (
                                 blocks, "_moe_token_gather")})
     device_shares(rows, busy, [
         ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),

@@ -28,10 +28,12 @@ reads the codes; a suffix prefill refuses such a cache (see ``_kv_load``).
 the same three modes over a per-sequence ``{"conv", "state"}`` cache (see
 ``ssd_apply``'s docstring). ``moe_apply`` has the JAX package's three
 MoE branches: on one device tokens sorted by expert through grouped
-products for a prefill, each token through its experts' gathered weights
-for decode; under expert parallelism the dispatch and combine over
-``all_to_all`` (``_moe_dispatch``) or the replicated tokens' partial sums
-(``_moe_replicated``).
+products for a prefill, every expert the layer holds over the tokens for
+decode (no per-token copy of weights, no host read); under expert
+parallelism the dispatch and combine over ``all_to_all``
+(``_moe_dispatch``) or the replicated tokens' partial sums
+(``_moe_replicated``). A layer may hold a share of the experts
+(``models.arch``) and give its part on one device.
 
 Under tensor parallelism (``models.sharding``, a rank's shard of each
 parameter) attention, cross-attention and MLA run the rank's block of the
@@ -58,6 +60,8 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..kernels.attn_split import attn_merge
 from ..kernels.decode_attention import kv_dequant, partial_softmax
+from ..tracing import SECTIONS
+from .arch import held_experts, settings
 from .layers import (Dense, RMSNorm, SwiGLU, apply_rope, logical_shape,
                      normal_, rmsnorm, rope)
 from .sharding import (HEAD_PAD, ShardCtx, all_gather, all_to_all, copy_to,
@@ -508,12 +512,16 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
 
     Attention is absorbed, in float32 as in JAX: ``q_lat = q_nope W_kb``,
     scores ``(q_lat c + q_rope kr) / sqrt(dn + dr)``, masked to -1e30, the
-    softmax, ``ctx = w c`` and ``ctx W_vb``, then ``wo``. A suffix prefill
-    puts the reused latent prefix (positions ``pos - Pk`` on) before the new
-    positions and builds new caches. Decode writes each sequence's latent
-    and key in place at its own position ``pos[b]`` (clamped to the last
-    slot, as JAX's ``dynamic_update_slice``) and masks its keys past
-    ``pos[b]``; JAX decodes one sequence at a time with a scalar position.
+    softmax, ``ctx = w c`` and ``ctx W_vb``, then ``wo``. With YaRN
+    (``arch.settings(cfg).yarn``) the rope tables take its frequencies and
+    the scores its softmax scale. A CUDA decode times the absorbed core,
+    ``q_lat`` to ``ctx W_vb``, as the device section ``mla.attend``. A
+    suffix prefill puts the reused latent prefix (positions ``pos - Pk``
+    on) before the new positions and builds new caches. Decode writes each
+    sequence's latent and key in place at its own position ``pos[b]``
+    (clamped to the last slot, as JAX's ``dynamic_update_slice``) and masks
+    its keys past ``pos[b]``; JAX decodes one sequence at a time with a
+    scalar position.
     No Pallas kernel computes MLA: these are plain products.
 
     Under tensor parallelism (``p.tp``) the rank runs its block of the
@@ -534,9 +542,12 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         positions = pos.reshape(B, 1)
     else:
         positions = pos + torch.arange(T, device=x.device)[None, :]
-    sin, cos = rope(positions, dr, cfg.rope_theta)
+    yarn = settings(cfg).yarn
+    sin, cos = rope(positions, dr, cfg.rope_theta, yarn)
     q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope[:, :, None], sin, cos)[:, :, 0]
+    # the scores' divisor: sqrt(dn + dr), over YaRN's softmax scale
+    div = math.sqrt(dn + dr) / (1.0 if yarn is None else yarn.softmax_scale)
 
     seq = mode == "decode" and p.tp is not None and p.tp.seq_sharded
     if mode == "decode":
@@ -561,22 +572,24 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         mask = (positions[0][:, None] >= positions[0][None, :])[None]
     new_cache = {"c": c_all, "kr": kr_all}
 
+    mark = SECTIONS.begin("mla.attend", x) if mode == "decode" else None
     wk = p.wk_b.w.reshape(r, H, dn).float()
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), wk)  # [B,T,H,r]
     if seq:
         ctx = _mla_decode_seq(p.tp, q_lat, q_rope, c_kv, k_rope, cache, pos,
-                              dn + dr)
+                              div)
     else:
         c32 = c_all.float()
         logits = (torch.einsum("bthr,bsr->bhts", q_lat, c32)
                   + torch.einsum("bthr,bsr->bhts", q_rope.float(),
-                                 kr_all.float())) / math.sqrt(dn + dr)
+                                 kr_all.float())) / div
         logits = torch.where(mask[:, None], logits,
                              torch.full_like(logits, -1e30))
         w = torch.softmax(logits, dim=-1)
         ctx = torch.einsum("bhts,bsr->bthr", w, c32)
     out = torch.einsum("bthr,rhv->bthv", ctx,
                        p.wv_b.w.reshape(r, H, dv).float())
+    SECTIONS.end(mark)
     y = p.wo(out.to(x.dtype).reshape(B, T, H * dv))
     if p.tp is not None:
         y = reduce_from(y, p.tp, p.tp.model_axis)
@@ -586,7 +599,7 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
 def _mla_decode_seq(ctx: ShardCtx, q_lat: torch.Tensor, q_rope: torch.Tensor,
                     c_kv: torch.Tensor, k_rope: torch.Tensor,
                     cache: Dict[str, torch.Tensor], pos: torch.Tensor,
-                    qk_dim: int) -> torch.Tensor:
+                    div: float) -> torch.Tensor:
     """MLA decode over a sequence-sharded latent cache (JAX's
     ``("batch", "model", None)`` layout): the rank holds ``c``/``kr`` over
     its block of slots and writes the new latent and key where the slot
@@ -594,7 +607,8 @@ def _mla_decode_seq(ctx: ShardCtx, q_lat: torch.Tensor, q_rope: torch.Tensor,
     and ``q_rope`` of every head, scores its slots in float32 (a key at
     position ``k`` seen where ``k <= pos[b]``), keeps each head's latent
     accumulator normalised over its slots with the base-2 log-sum-exp
-    (``partial_softmax``), and merges its own heads' over the ranks
+    (``partial_softmax``; the scores over ``div``), and merges its own
+    heads' over the ranks
     (``_seq_merge``, float32). Returns the rank's heads' attention output
     in the latent, [B, 1, h, r] float32; the products are plain."""
     c_all, kr_all = cache["c"], cache["kr"]                 # [B, S/m, .]
@@ -606,8 +620,7 @@ def _mla_decode_seq(ctx: ShardCtx, q_lat: torch.Tensor, q_rope: torch.Tensor,
                            ctx).split([q_lat.shape[-1], q_rope.shape[-1]], -1)
     c32 = c_all.float()
     s = (torch.einsum("bhr,bsr->bhs", ql, c32)
-         + torch.einsum("bhr,bsr->bhs", qr, kr_all.float())
-         ) / math.sqrt(qk_dim)
+         + torch.einsum("bhr,bsr->bhs", qr, kr_all.float())) / div
     k_pos = lo + torch.arange(n, device=c_all.device)
     w, lse = partial_softmax(s, k_pos[None, None, :] <= pos[:, None, None])
     o = torch.einsum("bhs,bsr->bhr", w, c32)
@@ -632,21 +645,33 @@ class MoE(nn.Module):
     """Routed experts and the shared ones, named as the JAX ``moe_init``
     pytree: ``router`` [d, E] (float32 in any model dtype), ``w_in`` and
     ``w_gate`` [E, d, F], ``w_out`` [E, F, d] and, with ``n_shared``, a
-    ``shared`` SwiGLU of width ``n_shared * F``."""
+    ``shared`` SwiGLU of width ``n_shared * F``.
+
+    A layer told which experts it holds (``arch.held_experts``: ``[lo, lo +
+    E_loc)``, a chip's share under expert parallelism) keeps the router at
+    every expert's width and only its own experts' weights, ``[E_loc, ...]``.
+    The published sigmoid router (``arch.settings(cfg).router``) adds
+    ``router_bias`` [E], float32. A decode leaves the pairs routed to each
+    held expert in ``held_pairs`` (int32 [E_loc], on the device)."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
         super().__init__()
         d, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_expert or cfg.d_ff
+        self.lo, E_loc = held_experts(cfg)
 
         def param(shape, dt=dtype):
             return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
                                 requires_grad=False)
         self.router = param((d, E), torch.float32)
-        self.w_in = param((E, d, F_))
-        self.w_gate = param((E, d, F_))
-        self.w_out = param((E, F_, d))
+        self.router_bias = (param((E,), torch.float32)
+                            if settings(cfg).router == "sigmoid_group"
+                            else None)
+        self.w_in = param((E_loc, d, F_))
+        self.w_gate = param((E_loc, d, F_))
+        self.w_out = param((E_loc, F_, d))
         self.shared = (SwiGLU(d, cfg.n_shared * F_, dtype=dtype,
                               device=device) if cfg.n_shared else None)
+        self.held_pairs: Optional[torch.Tensor] = None
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -657,6 +682,8 @@ class MoE(nn.Module):
         for w in (self.router, self.w_in, self.w_gate):
             normal_(w, generator, d ** -0.5)
         normal_(self.w_out, generator, F_ ** -0.5)
+        if self.router_bias is not None:    # DeepSeek-V3 starts it at zero
+            self.router_bias.zero_()
         if self.shared is not None:
             self.shared.init(generator)
 
@@ -672,6 +699,39 @@ def _route(x_flat: torch.Tensor, router: torch.Tensor, top_k: int
     probs = torch.softmax(x_flat.float() @ router, dim=-1)
     gates, idx = torch.topk(probs, top_k, dim=-1)
     return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+
+def _route_grouped(x_flat: torch.Tensor, router: torch.Tensor,
+                   bias: torch.Tensor, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router (``noaux_tc``): sigmoid scores in float32, the
+    bias added for the choice only; a group's score the sum of its two best
+    biased scores; the ``topk_group`` best groups kept and the ``top_k``
+    best biased scores among their experts chosen; the gates the chosen
+    experts' unbiased scores over their sum, times ``routed_scale``."""
+    st = settings(cfg)
+    scores = torch.sigmoid(x_flat.float() @ router)           # [N, E]
+    biased = scores + bias
+    N, E = biased.shape
+    groups = biased.view(N, st.n_group, E // st.n_group)
+    top_groups = groups.topk(2, dim=-1).values.sum(-1).topk(
+        st.topk_group, dim=-1).indices                        # [N, G_k]
+    keep = torch.zeros(N, st.n_group, dtype=torch.bool,
+                       device=x_flat.device).scatter_(1, top_groups, True)
+    choice = groups.masked_fill(~keep[..., None], float("-inf"))
+    idx = choice.view(N, E).topk(cfg.top_k, dim=-1).indices
+    gates = scores.gather(1, idx)
+    return gates / gates.sum(-1, keepdim=True) * st.routed_scale, idx
+
+
+def _routing(x_flat: torch.Tensor, router: torch.Tensor,
+             bias: Optional[torch.Tensor], cfg: ArchConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's router: ``_route`` (the JAX package's) unless the
+    settings ask for the sigmoid group router."""
+    if settings(cfg).router == "sigmoid_group":
+        return _route_grouped(x_flat, router, bias, cfg)
+    return _route(x_flat, router, cfg.top_k)
 
 
 def _host_count(t: torch.Tensor, on_meta: int) -> int:
@@ -708,10 +768,14 @@ def _moe_local(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The prefill path: the (token, expert) pairs sorted by expert (a
     stable sort, as JAX's ``argsort``), the grouped SwiGLU, gates applied in
     the activation dtype and the rows added back per token in ``x``'s
-    dtype."""
+    dtype. A layer that holds a share of the experts computes its part
+    (``_ep_partial``, with no collective after it)."""
     B, T, D = x.shape
     xf = x.reshape(-1, D)
-    gates, idx = _route(xf, p.router, cfg.top_k)
+    if held_experts(cfg)[1] < cfg.n_experts:
+        return _ep_partial(p.w_in, p.w_gate, p.w_out, p.router, xf, cfg,
+                           p.lo, "prefill", p.router_bias).reshape(B, T, D)
+    gates, idx = _routing(xf, p.router, p.router_bias, cfg)
     flat_e = idx.reshape(-1)                                  # [N*K]
     order = torch.argsort(flat_e, stable=True)
     src = order // cfg.top_k                                  # token of a row
@@ -720,23 +784,46 @@ def _moe_local(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return torch.zeros_like(xf).index_add_(0, src, y).reshape(B, T, D)
 
 
+def _held_ffn(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
+              xf: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
+              lo: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode path over the experts held, ``[lo, lo + E_loc)``: every
+    held expert over every row, each expert's weights read once, with no
+    host read (a CUDA graph holds it) and no per-token copy of weights. A
+    row's gate for a held expert is its routed gate there and zero where
+    the row did not choose it (or chose an expert not held), so the SwiGLU
+    of ``[E_loc, N, d] x [E_loc, d, F]`` gated per (expert, row) and one
+    product over (expert, F) give each row the sum of its held experts'
+    gated outputs, as JAX's token-gather einsums do over its chosen ones.
+    Returns (y [N, d] in ``xf``'s dtype, the pairs routed to each held
+    expert, int32 [E_loc]). A CUDA decode times it as the device section
+    ``moe.experts``."""
+    E_loc, N, D = w_in.shape[0], xf.shape[0], xf.shape[1]
+    mark = SECTIONS.begin("moe.experts", xf)
+    local = (idx >= lo) & (idx < lo + E_loc)                  # [N, K]
+    hit = F.one_hot((idx - lo).clamp(0, E_loc - 1), E_loc) * local[..., None]
+    comb = (hit * gates[..., None]).sum(1)                    # [N, E_loc]
+    xe = xf.expand(E_loc, N, D)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)   # [E_loc, N, F]
+    h = h * comb.t()[..., None].to(h.dtype)
+    y = h.transpose(0, 1).reshape(N, -1) @ w_out.reshape(-1, D)
+    SECTIONS.end(mark)
+    return y.to(xf.dtype), hit.sum((0, 1), dtype=torch.int32)
+
+
 def _moe_token_gather(p: MoE, x: torch.Tensor, cfg: ArchConfig
                       ) -> torch.Tensor:
-    """The decode path: each token through its ``top_k`` experts' weights,
-    gathered per token (``[N, K, d, F]``), with no host synchronisation.
-    The contractions are JAX's einsums written as batched products over the
-    gathered weights as they lie: per (token, expert) ``x w`` over d, then
-    one product over (expert, F) for the gated output."""
+    """The decode path (named as the JAX package's, which gathers each
+    token's experts' weights): the tokens routed over every expert, then
+    ``_held_ffn`` over the
+    experts the layer holds, which leaves their pair counts in
+    ``p.held_pairs``."""
     B, T, D = x.shape
     xf = x.reshape(-1, D)
-    N, K = xf.shape[0], cfg.top_k
-    gates, idx = _route(xf, p.router, K)
-    w_in, w_g, w_o = p.w_in[idx], p.w_gate[idx], p.w_out[idx]
-    xk = xf[:, None, None, :]                                 # [N, 1, 1, d]
-    h = F.silu(xk @ w_g) * (xk @ w_in)                        # [N, K, 1, F]
-    h = h * gates[..., None, None].to(h.dtype)
-    y = h.reshape(N, 1, -1) @ w_o.reshape(N, -1, D)           # [N, 1, d]
-    return y.reshape(B, T, D).to(x.dtype)
+    gates, idx = _routing(xf, p.router, p.router_bias, cfg)
+    y, p.held_pairs = _held_ffn(p.w_in, p.w_gate, p.w_out, xf, gates, idx,
+                                p.lo)
+    return y.reshape(B, T, D)
 
 
 # ------------------------------------------------- MoE: expert parallelism
@@ -746,7 +833,7 @@ CAPACITY_FACTOR = 1.25
 
 
 def _ep_send(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
-             E_loc: int, ep: int):
+             E_loc: int, ep: int, bias: Optional[torch.Tensor] = None):
     """A shard's half of the dispatch (the JAX ``_moe_ep_body`` up to its
     first ``all_to_all``): its N tokens routed, each (token, k) pair
     numbered within its destination shard in the flattened (token, k)
@@ -758,7 +845,7 @@ def _ep_send(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
     pair's slot being ``cap``."""
     N, D = xf.shape
     K = cfg.top_k
-    gates, idx = _route(xf, router, K)
+    gates, idx = _routing(xf, router, bias, cfg)
     dest = (idx // E_loc).reshape(-1)                         # [N*K]
     cap = max(1, int(math.ceil(N * K / ep * CAPACITY_FACTOR)))
     pos = (F.one_hot(dest, ep).cumsum(0) - 1).gather(1, dest[:, None])[:, 0]
@@ -799,25 +886,22 @@ def _ep_combine(back: torch.Tensor, route) -> torch.Tensor:
 
 def _ep_partial(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
                 router: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig,
-                lo: int, mode: str) -> torch.Tensor:
+                lo: int, mode: str, bias: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """The JAX ``body_dec`` before its ``psum``: every token's output from
     the shard's experts ``[lo, lo + E_loc)`` only, its other pairs masked
-    out. Decode gathers each token's experts' weights (the masked token
-    gather, no host read); a longer input sorts the shard's pairs through
-    the grouped SwiGLU (one host read: the count of local pairs, an even
-    share of them on the meta device) and sums each token's pairs in k
-    order."""
+    out. Decode runs every held expert over every token (``_held_ffn``, no
+    host read); a longer input sorts the shard's pairs through the grouped
+    SwiGLU (one host read: the count of local pairs, an even share of them
+    on the meta device) and sums each token's pairs in k order. A layer
+    that holds a share on one chip (``MoE``) runs this with no collective
+    after it."""
     N, D = xf.shape
     K, E_loc = cfg.top_k, w_in.shape[0]
-    gates, idx = _route(xf, router, K)
-    local = (idx >= lo) & (idx < lo + E_loc)
+    gates, idx = _routing(xf, router, bias, cfg)
     if mode == "decode":
-        e = (idx - lo).clamp(0, E_loc - 1)
-        xk = xf[:, None, None, :]
-        h = F.silu(xk @ w_gate[e]) * (xk @ w_in[e])             # [N, K, 1, F]
-        h = h * (gates * local)[..., None, None].to(h.dtype)
-        y = h.reshape(N, 1, -1) @ w_out[e].reshape(N, -1, D)
-        return y.reshape(N, D).to(xf.dtype)
+        return _held_ffn(w_in, w_gate, w_out, xf, gates, idx, lo)[0]
+    local = (idx >= lo) & (idx < lo + E_loc)
     e = torch.where(local, idx - lo, E_loc).reshape(-1)
     rows = torch.argsort(e, stable=True)[:_host_count(
         local.sum(), -(-N * K * E_loc // cfg.n_experts))]
@@ -841,7 +925,8 @@ def _moe_dispatch(p: MoE, xl: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
     traffic."""
     xf = xl.reshape(-1, xl.shape[-1])
     ep, axes = ctx.ep_size, ctx.ep_axes
-    send_x, send_e, route = _ep_send(xf, p.router, cfg, p.w_in.shape[0], ep)
+    send_x, send_e, route = _ep_send(xf, p.router, cfg, p.w_in.shape[0], ep,
+                                     p.router_bias)
     recv_x = exchange(send_x, ctx, axes)
     recv_e = all_to_all(send_e, ctx, axes)
     back = exchange(_ep_experts(p.w_in, p.w_gate, p.w_out, recv_x, recv_e),
@@ -866,7 +951,7 @@ def _moe_replicated(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     B, T, D = xg.shape
     lo = ctx.index(ctx.ep_axes) * p.w_in.shape[0]
     part = _ep_partial(p.w_in, p.w_gate, p.w_out, p.router,
-                       xg.reshape(-1, D), cfg, lo, mode)
+                       xg.reshape(-1, D), cfg, lo, mode, p.router_bias)
     y = reduce_from(part.reshape(B, T, D), ctx, ctx.ep_axes)
     return scatter_to(y, ctx, gather, 0)
 
@@ -878,8 +963,9 @@ def moe_apply(p: MoE, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     branches, picked by its rule:
 
     * local, with no mesh, one EP rank or experts the EP ranks do not
-      divide: the token gather for decode, the sorted grouped products
-      otherwise (train included);
+      divide: every held expert over the tokens for decode
+      (``_moe_token_gather``), the sorted grouped products otherwise (train
+      included); a layer holding a share of the experts gives its part;
     * dispatch, when the model axis divides T: the sequence split over
       "model", each rank's tokens dispatched to the experts' shards and
       combined (``_moe_dispatch``), the blocks gathered back over "model";

@@ -109,13 +109,20 @@ def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------- RoPE
-def rope(positions: torch.Tensor, dim: int, theta: float = 1e4
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sin, cos) float32 tables for ``positions`` [..., T] over ``dim``."""
+def rope(positions: torch.Tensor, dim: int, theta: float = 1e4,
+         yarn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) float32 tables for ``positions`` [..., T] over ``dim``;
+    with ``yarn`` (``models.arch.Yarn``) its frequencies and table scale."""
     half = dim // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=positions.device) / half))
+    if yarn is None:
+        freqs = 1.0 / (theta ** (torch.arange(
+            half, dtype=torch.float32, device=positions.device) / half))
+    else:
+        freqs = yarn.inv_freq(dim, theta, positions.device)
     ang = positions.float()[..., None] * freqs                # [..., T, half]
+    if yarn is not None and yarn.rope_scale != 1.0:
+        m = yarn.rope_scale
+        return torch.sin(ang) * m, torch.cos(ang) * m
     return torch.sin(ang), torch.cos(ang)
 
 

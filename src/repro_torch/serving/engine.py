@@ -27,8 +27,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.blocks import MoE
 from ..models.lm import Model
-from ..tracing import REC, on, syncs
+from ..tracing import REC, SECTIONS, on, syncs
 from .paged_kv import is_token_leaf_path, tree_map_with_path
 
 __all__ = ["ServingEngine", "DecodeBatch", "leaf_slots", "admit_leaf",
@@ -121,9 +122,9 @@ class DecodeBatch:
 
     Graphed (``graphable``), the batch holds its CUDA graph, and the
     graph's private memory pool, for as long as the batch lives: one
-    step's intermediates (the logits, and for a MoE decode the gathered
-    expert weights, ~5.5 GB for deepseek-v3 at 8 slots on the H100). Each
-    decode unit on a card reserves its own such pool."""
+    step's intermediates (the logits; an MLA decode's float32 copy of a
+    layer's latents). Each decode unit on a card reserves its own such
+    pool."""
 
     def __init__(self, model: Model, capacity: int = 256, max_slots: int = 8):
         self.model = model
@@ -150,6 +151,13 @@ class DecodeBatch:
         self.logits: Optional[torch.Tensor] = None
         self._out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.n_steps = 0          # steps taken; a step's span carries it
+        #: the device sections of the step (``tracing.SECTIONS``): the
+        #: graph's, or the last eager step's on a card
+        self._sections: list = []
+        self._moe = [m for n, m in model.named_modules()
+                     if isinstance(m, MoE) and not n.startswith("mtp")
+                     ] if isinstance(model, torch.nn.Module) else []
+        self._pairs_h: list = []
 
     def _build(self, example_cache: Any) -> None:
         def empty(path, leaf):
@@ -211,11 +219,17 @@ class DecodeBatch:
         ``engine.sync`` (the read of the tokens) and ``engine.retire``; the
         counter ``host_syncs`` takes one for each copy that blocked the host
         (``tracing.syncs``), and ``decode_graph_replays`` one for each
-        replay."""
+        replay. On a card each device section of the step is filed
+        (``REC.timed``, id: the step's number), and for a MoE model the
+        counter ``moe_held_pairs`` takes one bump a held expert of each
+        MoE layer, by the pairs routed to it: copied without blocking
+        ahead of the read of the tokens, so no sync is added."""
         if not self.slots:
             return {}
         self.n_steps += 1
         rec = on()
+        # a capturing step's sections and counts were recorded by no run
+        capturing = self.graphed and self._graph is None
         if rec:
             sp = REC.open("engine.step", self.n_steps)
             si = REC.open("engine.inputs")
@@ -227,10 +241,15 @@ class DecodeBatch:
                       syncs(self._tok_h, tok) + syncs(self._pos_h, pos))
             REC.close(si)
         if not self.graphed:
-            logits, self._stacked = self.model.decode_step(self._stacked,
-                                                           tok, pos)
+            if self.model.device.type == "cuda":
+                SECTIONS.into = self._sections = []
+            try:
+                logits, self._stacked = self.model.decode_step(
+                    self._stacked, tok, pos)
+            finally:
+                SECTIONS.into = None
             self.logits = logits[:, -1]
-        elif self._graph is None:
+        elif capturing:
             self.logits, nxt_d = self._capture()
         else:
             sd = REC.open("model.decode_step") if rec else -1
@@ -243,10 +262,18 @@ class DecodeBatch:
             si = REC.open("engine.sync")
         if not self.graphed:
             nxt_d = torch.argmax(self.logits, dim=-1)
+        if rec and not capturing:
+            pairs = self._copy_pairs()
         nxt_h = nxt_d.cpu()
         nxt = nxt_h.numpy()
         if rec:
             REC.count("host_syncs", syncs(nxt_d, nxt_h))
+            if not capturing:
+                for name, start, stop in self._sections:
+                    REC.timed(name, start.elapsed_time(stop), self.n_steps)
+                for held in pairs:
+                    for n in held.tolist():
+                        REC.count("moe_held_pairs", n)
             REC.close(si)
             si = REC.open("engine.retire")
         out: Dict[int, int] = {}
@@ -264,6 +291,20 @@ class DecodeBatch:
             REC.close(sp)
         return out
 
+    def _copy_pairs(self) -> List[torch.Tensor]:
+        """Each MoE layer's pairs a held expert (``MoE.held_pairs``) on the
+        host: from the card into pinned memory without blocking, ordered
+        before the step's read of its tokens, which waits for them."""
+        held = [m.held_pairs for m in self._moe if m.held_pairs is not None]
+        if not held or held[0].device.type != "cuda":
+            return held
+        if len(self._pairs_h) != len(held):
+            self._pairs_h = [torch.empty_like(t, device="cpu").pin_memory()
+                             for t in held]
+        for h, d in zip(self._pairs_h, held):
+            h.copy_(d, non_blocking=True)
+        return self._pairs_h
+
     def _capture(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The first graphed step: ``Model.decode_step`` runs eagerly (it
         builds and loads the kernels and cuBLAS's handles, and its outputs
@@ -272,22 +313,29 @@ class DecodeBatch:
         caches (written in place) and the outputs ``_out``. The eager call
         stays on the current stream, so that its transient tensors reuse
         that stream's cached memory. A capture runs nothing, so the caches
-        take this step's writes once; nor does it wait on the device.
-        Returns this step's logits at the new position and its tokens, on
-        the device."""
+        take this step's writes once; nor does it wait on the device. The
+        capture keeps the step's device sections (``tracing.SECTIONS``) as
+        event nodes, which every replay records again. Returns this step's
+        logits at the new position and its tokens, on the device."""
         logits, _ = self.model.decode_step(self._stacked, self._tok_d,
                                            self._pos_d)
         row = logits[:, -1]
         nxt = torch.argmax(row, dim=-1)
+        # a capture allocates from the graph's own pool and cannot hand the
+        # cached free memory of the stream's pool back to the device (after
+        # long prefills, most of the card): hand it back first
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(torch.cuda.Stream()):
             graph.capture_begin()
+            SECTIONS.into = self._sections = []
             try:
                 logits, _ = self.model.decode_step(self._stacked,
                                                    self._tok_d, self._pos_d)
                 self._out = (logits[:, -1],
                              torch.argmax(logits[:, -1], dim=-1))
             finally:
+                SECTIONS.into = None
                 graph.capture_end()
         self._graph = graph
         return row, nxt

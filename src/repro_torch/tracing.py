@@ -27,6 +27,16 @@ stack by its parent's ``close``; readers skip it.
 
 ``syncs(src, dst)`` says whether a copy made the host wait on the device,
 so that a site bumps ``host_syncs`` by what its copies did.
+
+A device section (``SECTIONS``) times a stretch of a CUDA decode step on
+the device, where a host span cannot: a graph replay runs no Python. A
+site brackets its operations with ``SECTIONS.begin(name, x)`` and
+``SECTIONS.end(mark)``, which record a pair of timing events (external,
+so that a graph capture keeps them as nodes) only while a ``DecodeBatch``
+collects them (``SECTIONS.into``) and ``x`` is on the card; elsewhere a
+site costs one test. After the step's read of its tokens, a recording
+batch files each pair's device milliseconds with ``REC.timed`` under the
+step's number.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ from torch.autograd import profiler as _profiler
 
 _now = time.perf_counter_ns
 
-__all__ = ["REC", "Recorder", "Span", "on", "recording", "syncs"]
+__all__ = ["REC", "Recorder", "Span", "SECTIONS", "Sections", "on",
+           "recording", "syncs"]
 
 
 class Span(NamedTuple):
@@ -65,6 +76,8 @@ class Recorder:
         self.rows: List[list] = []
         #: (t_ns, counter, n) of each bump, in order
         self.bumps: List[tuple] = []
+        #: (t_ns, section, device ms, id) of each timed section, in order
+        self.times: List[tuple] = []
         self.dropped = 0
         self._open: List[int] = [-1]     # open spans, innermost last
 
@@ -96,6 +109,13 @@ class Recorder:
             return
         self.bumps.append((_now(), name, n))
 
+    def timed(self, name: str, ms: float, id: Optional[int] = None) -> None:
+        """File a device section's milliseconds (``SECTIONS``)."""
+        if len(self.times) >= self.limit:
+            self.dropped += 1
+            return
+        self.times.append((_now(), name, ms, id))
+
     # ------------------------------------------------------------ readings
     def spans(self, t0_ns: int = 0, t1_ns: Optional[int] = None
               ) -> List[Span]:
@@ -112,8 +132,41 @@ class Recorder:
         return sum(n for t, c, n in self.bumps
                    if c == name and t0_ns <= t <= hi)
 
+    def section_ms(self, name: str, t0_ns: int = 0,
+                   t1_ns: Optional[int] = None) -> List[float]:
+        """The device milliseconds of section ``name`` filed within
+        [t0_ns, t1_ns]."""
+        hi = t1_ns if t1_ns is not None else 1 << 63
+        return [ms for t, c, ms, _ in self.times
+                if c == name and t0_ns <= t <= hi]
+
 
 REC = Recorder()
+
+
+class Sections:
+    """Pairs of timing events around named stretches of a decode step."""
+
+    def __init__(self) -> None:
+        #: where ``end`` puts (name, start, end) events; None: not collecting
+        self.into: Optional[list] = None
+
+    def begin(self, name: str, x: torch.Tensor):
+        if self.into is None or not x.is_cuda:
+            return None
+        start = torch.cuda.Event(enable_timing=True, external=True)
+        start.record()
+        return name, start
+
+    def end(self, mark) -> None:
+        if mark is None:
+            return
+        stop = torch.cuda.Event(enable_timing=True, external=True)
+        stop.record()
+        self.into.append((mark[0], mark[1], stop))
+
+
+SECTIONS = Sections()
 
 
 def on() -> bool:

@@ -286,10 +286,18 @@ def test_graph_share_reads_nothing_without_a_graph_path(rec, monkeypatch):
     assert read(_record()) is None
 
 
+#: the readings that also read the MLA and expert cell's record (its
+#: steps replay a graph; dispatch and the attention wrapper are dense-only)
+ALSO_MLA_MOE = {"decode_host_syncs_per_step", "decode_graph_share"}
+
+
 def test_every_new_metric_is_in_the_benchmark():
     names = {m["name"]: m for m in spec.benchmark()["per_layer"]}
     for metric in READINGS:
-        assert names[metric]["workloads"] == ["minitron-8b.decode-64"]
+        cells = ["minitron-8b.decode-64"]
+        if metric in ALSO_MLA_MOE:
+            cells.append("deepseek-v3.decode-reason-128")
+        assert names[metric]["workloads"] == cells
         assert names[metric]["moves"] == "tpot_p95_ms"
 
 
